@@ -1,0 +1,5 @@
+"""`python -m panopticdiffusionmodels_torch train --config=...` (see cli.py)."""
+from .cli import main
+
+if __name__ == "__main__":
+    main()

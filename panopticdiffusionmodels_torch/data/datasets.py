@@ -1,0 +1,173 @@
+"""Datasets of the training slice: MS-COCO pre-encoded features with panoptic
+maps, and synthetic data of the same shapes.
+
+A numpy-only copy of the parts of `panopticdiffusionmodels_tpu/data/datasets.py`
+that `t2i_discrete` training reads.  Samples are numpy arrays, channel-last
+like the JAX package's: moments (h, w, 2C) f32, context (77, clip_dim) f32,
+panoptic ids (H, W, 1) int32.  The feature files are those of the reference
+extraction scripts (`{i}.npy` moments (2C, h, w), `{i}_{k}.npy` CLIP
+contexts, `{i}_seg.npy` seg maps; reference `datasets.py:564-613`), so the
+same directory trains either package.
+"""
+from __future__ import annotations
+
+import os
+import random
+from typing import Optional
+
+import numpy as np
+
+
+class DatasetFactory:
+    """train/test splits (reference `datasets.py:84-130`); every sample keeps
+    its conditioning fields (the JAX `get_split(..., labeled=True)`)."""
+
+    def __init__(self):
+        self.train = None
+        self.test = None
+
+    def get_split(self, split: str):
+        if split not in ("train", "test"):
+            raise ValueError(split)
+        return getattr(self, split)
+
+
+class CFGDataset:
+    """Replace the context by the empty one w.p. p_uncond, for classifier-free
+    guidance training (reference `datasets.py:45-81`).  Draws from the
+    `random` module's global state, as the JAX package does."""
+
+    def __init__(self, dataset, p_uncond: float, empty_token):
+        self.dataset = dataset
+        self.p_uncond = p_uncond
+        self.empty_token = empty_token
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, item):
+        data = self.dataset[item]
+        x, y, rest = data[0], data[1], data[2:]
+        if random.random() < self.p_uncond:
+            y = self.empty_token
+        return (x, y, *rest)
+
+
+def min_pool_2d(x: np.ndarray, k: int) -> np.ndarray:
+    """k x k min-pool of an (H, W) map: the reference downsamples panoptic maps
+    256 -> 64 with MinPool2d(4) (reference `datasets.py:591`)."""
+    h, w = x.shape
+    return x.reshape(h // k, k, w // k, k).min(axis=(1, 3))
+
+
+class MSCOCOFeatureDataset:
+    """Pre-encoded MS-COCO sample: (moments, CLIP context[, panoptic map][, i]).
+
+    Per index i: `{i}.npy` moments (2C, h, w); `{i}_{k}.npy` CLIP context
+    (77, 768) for caption k in 0..num_captions-1, one at random unless
+    `deterministic`; `{i}_seg.npy` seg map (256, 256) int, min-pooled to
+    mask_size.  Without seg files the panoptic field is left out."""
+
+    def __init__(self, path: str, num_captions: int = 5, mask_size: int = 64,
+                 deterministic: bool = False, return_index: bool = False):
+        self.path = path
+        self.num_captions = num_captions
+        self.mask_size = mask_size
+        self.deterministic = deterministic
+        self.return_index = return_index
+        names = [n for n in os.listdir(path) if n.endswith("_seg.npy")]
+        self.has_seg = bool(names)
+        if self.has_seg:
+            self.indices = sorted(int(n.split("_")[0]) for n in names)
+        else:
+            self.indices = sorted(int(n[:-4]) for n in os.listdir(path)
+                                  if n.endswith(".npy") and n[:-4].isdigit())
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, item):
+        i = self.indices[item]
+        z = np.load(os.path.join(self.path, f"{i}.npy"))
+        k = 0 if self.deterministic else random.randint(0, self.num_captions - 1)
+        context = np.load(os.path.join(self.path, f"{i}_{k}.npy"))
+        out = (np.ascontiguousarray(z.transpose(1, 2, 0)).astype(np.float32),
+               context.astype(np.float32))
+        if self.has_seg:
+            seg = np.load(os.path.join(self.path, f"{i}_seg.npy"))
+            pool = seg.shape[0] // self.mask_size
+            if pool > 1:
+                seg = min_pool_2d(seg, pool)
+            out = (*out, seg[..., None].astype(np.int32))
+        return (*out, i) if self.return_index else out
+
+
+class MSCOCO256Features(DatasetFactory):
+    """mscoco256_features (reference `datasets.py:616-652`): `train/` and `val/`
+    feature dirs and `empty_context.npy` for CFG."""
+
+    def __init__(self, path: str, cfg: bool = False, p_uncond: Optional[float] = None,
+                 mask_size: int = 64):
+        super().__init__()
+        self.path = path
+        train = MSCOCOFeatureDataset(os.path.join(path, "train"), mask_size=mask_size)
+        self.test = MSCOCOFeatureDataset(os.path.join(path, "val"), mask_size=mask_size,
+                                         deterministic=True, return_index=True)
+        self.empty_context = np.load(os.path.join(path, "empty_context.npy"))
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("mscoco256_features: cfg=True needs p_uncond")
+            self.train = CFGDataset(train, p_uncond, self.empty_context)
+        else:
+            self.train = train
+
+
+class SyntheticDataset:
+    """Seeded numpy fields: normal f32, or ids in [0, 200] for `int_fields`."""
+
+    def __init__(self, shapes, n: int = 256, seed: int = 0, int_fields=()):
+        rng = np.random.default_rng(seed)
+        self.fields = []
+        for i, shape in enumerate(shapes):
+            if i in int_fields:
+                self.fields.append(rng.integers(0, 201, size=(n, *shape)).astype(np.int32))
+            else:
+                self.fields.append(rng.normal(size=(n, *shape)).astype(np.float32))
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, item):
+        vals = tuple(f[item] for f in self.fields)
+        return vals if len(vals) > 1 else vals[0]
+
+
+class Synthetic(DatasetFactory):
+    """Synthetic (moments, context[, panoptic]) data: the same arrays as the JAX
+    package's `Synthetic(style='coco')` for the same seed.  Its other styles
+    come with the slices of their tasks."""
+
+    def __init__(self, n: int = 256, z_shape=(32, 32, 8), clip_shape=(77, 768),
+                 mask_size: int = 64, panoptic: bool = True, seed: int = 0):
+        super().__init__()
+        shapes, int_fields = [z_shape, clip_shape], ()
+        if panoptic:
+            shapes.append((mask_size, mask_size, 1))
+            int_fields = (2,)
+        self.train = SyntheticDataset(shapes, n=n, seed=seed, int_fields=int_fields)
+        self.test = self.train
+        self.empty_context = np.zeros(clip_shape, dtype=np.float32)
+
+
+def get_dataset(name: str, **kwargs) -> DatasetFactory:
+    """Factory over a config's `dataset` fields (reference `datasets.py:655-669`)."""
+    if name == "mscoco256_features":
+        return MSCOCO256Features(**kwargs)
+    if name == "synthetic":
+        return Synthetic(**kwargs)
+    if name in ("cifar10", "celeba", "imagenet", "imagenet256_features",
+                "imagenet512_features"):
+        raise NotImplementedError(
+            f"dataset {name!r} comes with the slice of its task (pixel / class-conditional)")
+    raise NotImplementedError(name)

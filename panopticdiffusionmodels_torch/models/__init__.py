@@ -1,8 +1,9 @@
 from .uvit_t2i import UViTT2I
 
-# Config fields that steer the JAX package's training and compilation only
-# (activation remat, scanned block stacks); inference ignores them.
-TRAINING_ONLY_FIELDS = ("use_checkpoint", "remat_policy", "scan_blocks", "use_ground_truth")
+# Config fields the port's constructors do not take: `scan_blocks` is a JAX
+# compile-time layout (the port unrolls), `use_ground_truth` a call-time mode
+# the loss passes per forward.
+TRAINING_ONLY_FIELDS = ("scan_blocks", "use_ground_truth")
 
 
 def get_nnet(name: str, **kwargs):

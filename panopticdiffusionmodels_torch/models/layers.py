@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_qkv
 
@@ -112,31 +113,54 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def attend(self, qkv):
+        return attention_qkv(qkv, self.num_heads, scale=self.scale, impl=self.attn_impl)
+
     def forward(self, x):
-        out = attention_qkv(self.qkv(x), self.num_heads, scale=self.scale,
-                            impl=self.attn_impl)
-        return self.proj(out)
+        return self.proj(self.attend(self.qkv(x)))
 
 
 class Block(nn.Module):
     """Pre-norm transformer block; the long-skip projection runs before the
-    attention residual, as in the reference."""
+    attention residual, as in the reference.
+
+    `use_checkpoint` with `remat_policy='save_attn'` (the JAX package's
+    `scan_stack.resolve_remat_policy`): under grad mode the two regions
+    around the attention, norm1 -> qkv and proj -> +res -> norm2 -> mlp ->
+    +res, are recomputed in backward (non-reentrant `torch.utils.checkpoint`),
+    while the attention itself stays outside them, so its output is kept and
+    its forward kernel is not replayed.  Values equal the unchecked block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
-                 skip: bool = False, attn_impl: str = "infer", gelu_approx: bool = False):
+                 skip: bool = False, attn_impl: str = "infer", gelu_approx: bool = False,
+                 use_checkpoint: bool = False, remat_policy: Optional[str] = "save_attn"):
         super().__init__()
+        if use_checkpoint and remat_policy != "save_attn":
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} is not ported yet (only 'save_attn' is); "
+                "the other policies come with a later PR")
+        self.use_checkpoint = use_checkpoint
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_impl)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
         self.skip_linear = nn.Linear(2 * dim, dim) if skip else None
 
+    def _qkv(self, x):
+        return self.attn.qkv(self.norm1(x))
+
+    def _out(self, x, a):
+        x = x + self.attn.proj(a)
+        return x + self.mlp(self.norm2(x))
+
     def forward(self, x, skip=None):
         if self.skip_linear is not None:
             x = self.skip_linear(torch.cat([x, skip], dim=-1))
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        if self.use_checkpoint and torch.is_grad_enabled():
+            a = self.attn.attend(checkpoint(self._qkv, x, use_reentrant=False))
+            return checkpoint(self._out, x, a, use_reentrant=False)
+        return self._out(x, self.attn.attend(self._qkv(x)))
 
 
 def time_embed(embed_dim: int, mlp: bool) -> nn.Module:

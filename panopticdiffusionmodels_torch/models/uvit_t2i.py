@@ -14,7 +14,9 @@ reference's parameter names (`libs/uvit_t2i.py`) and NCHW inputs:
     and the given mask is returned unchanged.
 
 Blocks are unrolled; the JAX package's scanned layout is a compile-time
-device there, and `utils/weights.py` unstacks it.
+device there, and `utils/weights.py` unstacks it.  `use_checkpoint` /
+`remat_policy` recompute each block's non-attention regions in backward
+(`layers.Block`); `attn_impl='auto'` is the trainable attention.
 """
 from __future__ import annotations
 
@@ -59,6 +61,8 @@ class UViTT2I(nn.Module):
         mask_size: int = 64,
         attn_impl: str = "infer",
         gelu_approx: bool = False,
+        use_checkpoint: bool = False,
+        remat_policy: Optional[str] = "save_attn",
     ):
         super().__init__()
         self.patch_size = patch_size
@@ -76,7 +80,8 @@ class UViTT2I(nn.Module):
 
         def block(skip_on=False):
             return Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                         skip=skip_on, attn_impl=attn_impl, gelu_approx=gelu_approx)
+                         skip=skip_on, attn_impl=attn_impl, gelu_approx=gelu_approx,
+                         use_checkpoint=use_checkpoint, remat_policy=remat_policy)
 
         half = depth // 2
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)

@@ -6,6 +6,7 @@ middle, stride-2 downsampling with the reference's asymmetric (0, 1, 0, 1)
 padding, nearest-2x + conv upsampling.  Parameter names follow
 `libs/autoencoder.py`, so the reference `autoencoder_kl.pth` loads with
 `strict=True`.  Serving only decodes; the encoder is here for that load.
+Training reads pre-encoded moments through `sample_from_moments`.
 """
 from __future__ import annotations
 
@@ -169,6 +170,21 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv((1.0 / self.scale_factor) * z))
+
+
+def sample_from_moments(moments: torch.Tensor, scale_factor: float = 0.18215,
+                        noise: torch.Tensor = None, generator: torch.Generator = None):
+    """Reparameterised draw from pre-extracted moments, channel-last
+    (..., 2*C) -> (..., C): the training hot path reads (mean, logvar)
+    features (JAX `models/vae.py::sample_from_moments`).  `noise` is the
+    standard-normal draw; without it one is taken from `generator`."""
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    std = torch.exp(0.5 * logvar)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+    return scale_factor * (mean + std * noise)
 
 
 def get_model(scale_factor: float = 0.18215) -> AutoencoderKL:

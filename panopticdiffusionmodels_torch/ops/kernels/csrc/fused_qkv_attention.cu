@@ -5,7 +5,10 @@
 // (bodies `_kernel`, `_kernel_long`, `_attend`).
 //
 // Input  qkv (B, L, 3C) bf16, row-major, columns [q heads | k heads | v heads].
-// Output out (B, L, C)  bf16, heads concatenated at columns h*D.
+// Output out (B, L, C)  bf16, heads concatenated at columns h*D;
+//        lse (B, H, L) f32, optional (null skips it): each row's natural-log
+//        log-sum-exp of the scaled scores, ln(sum_j exp(q.k_j * scale)), which
+//        the backward kernel (fused_qkv_attention_bwd.cu) reads to rebuild P.
 // Per head: softmax(q k^T * scale) v.  q, k and v are read with strides from
 // the packed tensor (row stride 3C, column offsets h*D, C + h*D, 2C + h*D), so
 // neither side needs a transpose.
@@ -92,8 +95,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     fused_qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                               __nv_bfloat16* __restrict__ out, int L, int H, int D,
-                               float scale_log2) {
+                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                               int L, int H, int D, float scale_log2) {
   constexpr int kStride = DP + 8;     // shared-memory row stride, padded against bank conflicts
   constexpr int kChunksD = DP / 16;   // k-steps of Q K^T over the head dim
   constexpr int kTilesN = kBlockN / 8;  // 8-key column tiles of S
@@ -221,6 +224,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  const int row0 = q0 + wr + gid;
+  const int row1 = row0 + 8;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -228,9 +233,12 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    // m_run is in log2 units of the scaled score; back to natural log.
+    const int row = r ? row1 : row0;
+    if (lse != nullptr && tig == 0 && row < L) {
+      lse[((long)b * H + h) * L + row] = (m_run[r] + log2f(l)) * 0.6931471805599453f;
+    }
   }
-  const int row0 = q0 + wr + gid;
-  const int row1 = row0 + 8;
   __nv_bfloat16* obase = out + (long)b * L * C + h * D;
 #pragma unroll
   for (int dt = 0; dt < kTilesD; ++dt) {
@@ -249,15 +257,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int DP>
-cudaError_t launch(const void* qkv, void* out, int B, int L, int H, int D, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* qkv, void* out, float* lse, int B, int L, int H, int D,
+                   float scale, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * kBlockN) * (DP + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(fused_qkv_attention_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlockM - 1) / kBlockM, H, B);
   fused_qkv_attention_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), L, H, D,
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), lse, L, H, D,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -265,9 +273,10 @@ cudaError_t launch(const void* qkv, void* out, int B, int L, int H, int D, float
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success).  Launches on
-// `stream` and does not synchronise; `out` is allocated by the caller.
-extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, int B, int L, int H, int D,
-                                       float scale, int device, void* stream) {
+// `stream` and does not synchronise; `out` (and `lse`, unless null) are
+// allocated by the caller.
+extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, float* lse, int B, int L,
+                                       int H, int D, float scale, int device, void* stream) {
   if (B < 1 || L < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -275,13 +284,13 @@ extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, int B, int L,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return (int)launch<16>(qkv, out, B, L, H, D, scale, s);
-    case 2: return (int)launch<32>(qkv, out, B, L, H, D, scale, s);
-    case 3: return (int)launch<48>(qkv, out, B, L, H, D, scale, s);
-    case 4: return (int)launch<64>(qkv, out, B, L, H, D, scale, s);
-    case 5: return (int)launch<80>(qkv, out, B, L, H, D, scale, s);
-    case 6: return (int)launch<96>(qkv, out, B, L, H, D, scale, s);
-    case 7: return (int)launch<112>(qkv, out, B, L, H, D, scale, s);
-    default: return (int)launch<128>(qkv, out, B, L, H, D, scale, s);
+    case 1: return (int)launch<16>(qkv, out, lse, B, L, H, D, scale, s);
+    case 2: return (int)launch<32>(qkv, out, lse, B, L, H, D, scale, s);
+    case 3: return (int)launch<48>(qkv, out, lse, B, L, H, D, scale, s);
+    case 4: return (int)launch<64>(qkv, out, lse, B, L, H, D, scale, s);
+    case 5: return (int)launch<80>(qkv, out, lse, B, L, H, D, scale, s);
+    case 6: return (int)launch<96>(qkv, out, lse, B, L, H, D, scale, s);
+    case 7: return (int)launch<112>(qkv, out, lse, B, L, H, D, scale, s);
+    default: return (int)launch<128>(qkv, out, lse, B, L, H, D, scale, s);
   }
 }
