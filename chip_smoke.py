@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100 and
-check their kernels.
+"""Drive the PyTorch port's serving, training and sequence-parallel training
+paths on one NVIDIA H100 and check their kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
 Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every hand-written kernel of the paths, from `csrc/`, with nvcc
-     (one process per source, all at once);
+     (one process per source, all at once), with ptxas' register report;
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
      and training shapes (relative deviation < 5e-3), with CUDA-event times
      of the kernel, the plain version and `scaled_dot_product_attention` as
@@ -17,9 +17,17 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      3b. the backward kernel vs `attention_qkv_vjp_plain` at the training
      shapes and U-ViT-L/2 / U-ViT-H (relative deviation of dqkv < 5e-3),
      timed beside the plain version and SDPA's backward;
+     3c. the ring-hop kernel vs `attention_hop_plain` at the 512-res and
+     256-res sp=2 shard shapes and the TPU verify shapes, nvalid = Lk,
+     Lk - 64, 0 and a per-row mix, q a strided view of the packed qkv
+     (max of the relative deviations of o, m and den < 5e-3), timed beside
+     the plain version and flash SDPA;
   4. the full-width UViTT2I forward (mscoco_uvit_small, B=8) with the kernel
      against the same weights with the plain attention (relative deviation
      < 2e-2 on noise and mask);
+     4b. the 512-res UViTT2I (mscoco_uvit_small_512, B=8) at sp=2 in-process
+     through the ring against the same weights at sp=1 through the forward
+     kernel at L = 1102 / 2126 (relative deviation < 2e-2, 52 hop launches);
   5. serving: GenerationPipeline.from_config("mscoco_uvit_small"), seeded
      random weights, bf16; a 6-step request through the kernel against the
      same request through the plain attention (relative deviation < 2e-2 on
@@ -39,7 +47,17 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      images/s, peak memory, finite losses, and exactly 26 forward and 26
      backward kernel calls per step;
   9. one more step under torch.profiler: device busy time and top kernels;
- 10. prints the computed bounds of the kernels still to be ported, the card
+ 11. sequence-parallel training: `Trainer` for mscoco_uvit_small_512 at full
+     width and depth, mesh.sp = 2 with sp_mode 'in_process' (both shards on
+     the one card, folded into the batch), fine-tune mode, synthetic data at
+     the config's shapes; one step (batch 8) through the hop kernels against
+     the same step through `attention_hop_plain` (loss < 5e-3, whole
+     gradient < 2e-2);
+ 12. `Trainer.fit` at sp=2: 3 warm-up and 20 timed steps at batch 8: steps/s,
+     images/s, peak memory, finite losses, exactly 52 hop launches a step
+     and none of the other kernels;
+ 13. one more sp step under torch.profiler;
+ 14. prints the computed bounds of the kernels still to be ported, the card
      line, the `kernels` JSON line and, last, the ok line.
 """
 from __future__ import annotations
@@ -62,6 +80,8 @@ from panopticdiffusionmodels_torch.models.layers import Attention
 from panopticdiffusionmodels_torch.ops.attention import attention_qkv
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as fqa
+from panopticdiffusionmodels_torch.ops.kernels import ring_hop
+from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
@@ -81,6 +101,28 @@ REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
 # stream, one forward and one backward attention call each per step.
 WARMUP_STEPS, TIMED_STEPS, PARITY_BATCH = 3, 20, 16
 LAUNCHES_PER_STEP = 26
+# Ring hops (B, Lq, Lk), 8 heads of 64: the 512-res shards at sp=2 and the
+# config's batch 8 folded to 16 rows (mask stream 1063, image stream 551),
+# the 256-res shards (295, 167), and the TPU verify shapes
+# (scripts/verify_kernel_tpu.py:189-190) at B=2.
+HOP_SHAPES = [(16, 1063, 1063), (16, 551, 551), (16, 295, 295), (16, 167, 167),
+              (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258)]
+HOP_MAIN_SHAPES = HOP_SHAPES[:2]
+HOP_HEADS, HOP_DIM = 8, 64
+# Sequence-parallel training of mscoco_uvit_small_512 at sp = 2, in-process:
+# 13 + 13 ring attentions a step, 2 hops each, one hop launch per hop over
+# the folded batch.
+SP, SP_BATCH = 2, 8
+HOP_LAUNCHES_PER_STEP = 52
+
+
+def zero_counts() -> None:
+    fqa.launches = fqa.bwd_launches = ring_hop.launches = 0
+
+
+def read_counts() -> dict:
+    return {"fused_attention_qkv": fqa.launches, "fused_attention_qkv_vjp": fqa.bwd_launches,
+            "attention_hop": ring_hop.launches}
 
 
 def card_line() -> str:
@@ -116,8 +158,8 @@ def phase_environment():
 
 def phase_build():
     t0 = time.perf_counter()
-    build.build_all([fqa.NAME, fqa.BWD_NAME])
-    print(f"[2] built {fqa.NAME}, {fqa.BWD_NAME} in {time.perf_counter() - t0:.2f} s")
+    build.build_all(build.KERNELS)
+    print(f"[2] built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -206,20 +248,96 @@ def phase_backward(gen):
     return rows
 
 
+def hop_bound(b, lq, lk, c, h):
+    """q and packed kv read once (bf16), o (bf16), m and den (f32) and nvalid
+    written / read once; 4*B*Lq*Lk*C operations (every key of the hop is
+    scored, padding too)."""
+    bytes_ms = (2 * b * (lq * c + 2 * lk * c + lq * c) + 2 * 4 * b * lq * h + 4 * b) \
+        / PEAK_BYTES * 1e3
+    flops_ms = 4 * b * lq * lk * c / PEAK_BF16_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def phase_hop(gen):
+    """The ring-hop kernel against `attention_hop_plain` in bf16: q always a
+    strided view of a packed qkv (as the ring passes it), kv a contiguous
+    rotated shard and, where Lq = Lk, also the hop-0 view of the packed qkv;
+    nvalid = Lk, Lk - 64, 0 for every row (0: an all-padding hop) and a
+    mix of the three over the rows.  Bar: max(rel o, rel m, rel den) < 5e-3.
+    Timed at nvalid = Lk beside the plain version and flash SDPA, whose
+    (out, lse) is the same partial with den = 1."""
+    rows = []
+    h, d = HOP_HEADS, HOP_DIM
+    c, scale = h * d, d ** -0.5
+    for b, lq, lk in HOP_SHAPES:
+        qkv = (torch.randn((b, lq, 3 * c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        q = qkv[..., :c]
+        kv = (torch.randn((b, lk, 2 * c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        kvs = {"rotated": kv, "hop0 view": qkv[..., c:]} if lq == lk else {"rotated": kv}
+        cases = {str(nv): torch.full((b,), nv, dtype=torch.int32, device="cuda")
+                 for nv in sorted({lk, lk - 64, 0, 1000 if lk == 1064 else 0}, reverse=True)}
+        cases["mixed"] = torch.tensor([(lk, lk - 64, 0)[i % 3] for i in range(b)],
+                                      dtype=torch.int32, device="cuda")
+        worst = dict(rel=0.0, max_abs_err=0.0)
+        for kv_name, kv_in in kvs.items():
+            for nv_name, nvalid in cases.items():
+                got = ring_hop.attention_hop(q, kv_in, h, scale, nvalid)
+                ref = ring_hop.attention_hop_plain(q, kv_in, h, scale, nvalid)
+                torch.cuda.synchronize()
+                rels = [rel_dev(a, r) for a, r in zip(got, ref)]
+                abs_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+                ok = all(torch.isfinite(a.float()).all() for a in got) and max(rels) < 5e-3
+                print(f"[3c] B{b} Lq{lq} Lk{lk} kv {kv_name} nvalid {nv_name}: rel o/m/den "
+                      f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} max|err| {abs_err:.2e}")
+                assert ok, (b, lq, lk, kv_name, nv_name, rels)
+                worst = dict(rel=max(worst["rel"], *rels),
+                             max_abs_err=max(worst["max_abs_err"], abs_err))
+        row = dict(shape=[b, lq, lk, h, d], max_rel_dev=worst["rel"],
+                   max_abs_err=worst["max_abs_err"])
+        if (b, lq, lk) in HOP_MAIN_SHAPES:
+            full = torch.full((b,), lk, dtype=torch.int32, device="cuda")
+            qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
+                          for t in (q, kv[..., :c], kv[..., c:]))
+            flash = torch.ops.aten._scaled_dot_product_flash_attention
+            row.update(
+                ms=cuda_ms(lambda: ring_hop.attention_hop(q, kv, h, scale, full)),
+                plain_ms=cuda_ms(lambda: ring_hop.attention_hop_plain(q, kv, h, scale, full),
+                                 iters=5),
+                library_ms=cuda_ms(lambda: flash(qh, kh, vh, 0.0, False, False, scale=scale)))
+            row["bound_ms"], row["bound_by"] = hop_bound(b, lq, lk, c, h)
+            print(f"[3c] B{b} Lq{lq} Lk{lk}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, flash sdpa {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+    return rows
+
+
 def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
     for m in model.modules():
         if isinstance(m, Attention):
             m.attn_impl = impl
 
 
+def set_sp(model: torch.nn.Module, sp) -> None:
+    """The sequence-parallel context of the model and its attentions."""
+    for m in [model, *(a for a in model.modules() if isinstance(a, Attention))]:
+        m.sp = sp
+
+
+def open_zero_convs(model: torch.nn.Module) -> None:
+    """Make the zero-initialised coupling gates non-zero, so that the mask
+    stream feeds the image stream."""
+    with torch.no_grad():
+        for zc in model.zero_convs.values():
+            zc.conv.weight.normal_(0, 0.02)
+            zc.conv.bias.normal_(0, 0.02)
+
+
 def phase_forward(gen):
     kw = dict(get_config("mscoco_uvit_small").nnet)
     torch.manual_seed(1)
     model = get_nnet(kw.pop("name"), **kw)
-    with torch.no_grad():  # open the zero-conv gates so the coupling carries signal
-        for zc in model.zero_convs.values():
-            zc.conv.weight.normal_(0, 0.02)
-            zc.conv.bias.normal_(0, 0.02)
+    open_zero_convs(model)
     model = model.to("cuda", torch.bfloat16).eval()
     x = torch.randn((8, 4, 32, 32), generator=gen, device="cuda")
     t = torch.rand((8,), generator=gen, device="cuda") * 1000
@@ -236,6 +354,36 @@ def phase_forward(gen):
         rel = rel_dev(a, b)
         print(f"[4] full-width UViTT2I forward B=8, {name}: kernel vs plain rel {rel:.2e}")
         assert torch.isfinite(a).all() and rel < 2e-2, (name, rel)
+
+
+def phase_ring_forward(gen):
+    """The 512-res UViTT2I (mscoco_uvit_small_512, full width and depth) at
+    B=8: sp=2 in-process through the ring and its hop kernel against the same
+    weights at sp=1 through the forward kernel (L = 1102 and 2126)."""
+    kw = dict(get_config("mscoco_uvit_small_512").nnet)
+    torch.manual_seed(3)
+    model = get_nnet(kw.pop("name"), **kw)
+    open_zero_convs(model)
+    model = model.to("cuda", torch.bfloat16).eval()
+    x = torch.randn((SP_BATCH, 4, 64, 64), generator=gen, device="cuda")
+    t = torch.rand((SP_BATCH,), generator=gen, device="cuda") * 1000
+    ctx = torch.randn((SP_BATCH, 77, 768), generator=gen, device="cuda")
+    m = torch.randn((SP_BATCH, 8, 128, 128), generator=gen, device="cuda")
+    with torch.no_grad():
+        set_attn_impl(model, "kernel")
+        full = model(x, t, ctx, mask_token=m)
+        set_sp(model, InProcessSP(SP))
+        set_attn_impl(model, "ring")
+        hops = ring_hop.launches
+        ring = model(x, t, ctx, mask_token=m)
+        hops = ring_hop.launches - hops
+    torch.cuda.synchronize()
+    assert hops == HOP_LAUNCHES_PER_STEP, hops
+    for i, name in enumerate(("noise", "mask")):
+        rel = rel_dev(ring[i], full[i])
+        print(f"[4b] 512-res UViTT2I forward B={SP_BATCH}, {name}: sp={SP} ring (hop kernel) vs "
+              f"sp=1 (forward kernel) rel {rel:.2e} (bar 2e-2), {hops} hop launches")
+        assert torch.isfinite(ring[i]).all() and rel < 2e-2, (name, rel)
 
 
 def phase_serving():
@@ -264,7 +412,7 @@ def phase_serving():
         assert torch.isfinite(a).all() and rel < bar, (name, rel)
     torch.cuda.synchronize()
 
-    fqa.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     done = []
     for i, (images, ids) in enumerate(pipe.generate_batches(batches, steps=STEPS, seed=0)):
@@ -331,10 +479,7 @@ def write_pretrained(path: str, config) -> None:
     kw = dict(config.nnet)
     torch.manual_seed(2)
     model = get_nnet(kw.pop("name"), **kw)
-    with torch.no_grad():
-        for zc in model.zero_convs.values():
-            zc.conv.weight.normal_(0, 0.02)
-            zc.conv.bias.normal_(0, 0.02)
+    open_zero_convs(model)
     torch.save(model.state_dict(), path)
 
 
@@ -342,53 +487,56 @@ def grads_vector(trainer) -> torch.Tensor:
     return torch.cat([p.grad.flatten().float() for p in trainer.state.params.values()])
 
 
-def phase_train_parity(trainer):
-    """One step (batch 16) through the kernels and through the plain attention,
-    same weights, batch and draws."""
+def phase_train_parity(trainer, batch_size, impls, tag):
+    """One step through the kernels (impls[0]) and through the plain
+    attention (impls[1]), same weights, batch and draws."""
     rng = np.random.default_rng(0)
     moments, context, ids = (np.stack(f) for f in zip(*(
-        trainer.dataset.train[i] for i in range(PARITY_BATCH))))
+        trainer.dataset.train[i] for i in range(batch_size))))
     batch = (moments, context, ids)
     h, w, c2 = moments.shape[1:]
     m = trainer.config.nnet.mask_size
-    noise = {"z": rng.standard_normal((PARITY_BATCH, h, w, c2 // 2)).astype(np.float32),
-             "n": rng.integers(1, 1001, PARITY_BATCH),
-             "eps": rng.standard_normal((PARITY_BATCH, h, w, c2 // 2)).astype(np.float32),
+    noise = {"z": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
+             "n": rng.integers(1, 1001, batch_size),
+             "eps": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
              "eps_m": 2.0 * rng.standard_normal(
-                 (PARITY_BATCH, m, m, trainer.config.nnet.mask_bits)).astype(np.float32)}
+                 (batch_size, m, m, trainer.config.nnet.mask_bits)).astype(np.float32)}
     out = {}
-    for impl in ("auto", "plain"):
+    for impl in impls:
         set_attn_impl(trainer.nnet, impl)
         metrics = trainer.loss_and_grads(batch, noise)
         out[impl] = (float(metrics["loss"] + metrics["loss_mask"]), grads_vector(trainer))
-    set_attn_impl(trainer.nnet, "auto")
+    set_attn_impl(trainer.nnet, impls[0])
     for p in trainer.state.params.values():
         p.grad = None
-    loss_rel = abs(out["auto"][0] - out["plain"][0]) / abs(out["plain"][0])
-    grad_rel = rel_dev(out["auto"][1], out["plain"][1])
-    print(f"[7] train step B={PARITY_BATCH}, kernels vs plain attention: loss "
-          f"{out['auto'][0]:.6f} vs {out['plain'][0]:.6f} (rel {loss_rel:.2e}, bar 5e-3), "
+    (ker_loss, ker_grad), (ref_loss, ref_grad) = out[impls[0]], out[impls[1]]
+    loss_rel = abs(ker_loss - ref_loss) / abs(ref_loss)
+    grad_rel = rel_dev(ker_grad, ref_grad)
+    print(f"[{tag}] train step B={batch_size}, attn_impl {impls[0]!r} vs {impls[1]!r}: loss "
+          f"{ker_loss:.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, bar 5e-3), "
           f"whole gradient rel {grad_rel:.2e} (bar 2e-2)")
-    assert np.isfinite(out["auto"][0]) and loss_rel < 5e-3, loss_rel
-    assert torch.isfinite(out["auto"][1]).all() and grad_rel < 2e-2, grad_rel
+    assert np.isfinite(ker_loss) and loss_rel < 5e-3, loss_rel
+    assert torch.isfinite(ker_grad).all() and grad_rel < 2e-2, grad_rel
 
 
-def phase_train(trainer):
-    """Trainer.fit: warm-up, then the timed steps with the counters zeroed."""
+def phase_train(trainer, tag, per_step):
+    """Trainer.fit: warm-up, then the timed steps with every launch counter
+    zeroed just before and read just after; `per_step` is the launches each
+    kernel must make a step (the others must make none)."""
     bsz = trainer.config.train.batch_size
     frozen = {n: trainer.state.params[n].detach().clone() for n in sorted(trainer.state.frozen)}
     assert frozen, "fine-tune mode froze nothing"
     trainer.fit(max_steps=WARMUP_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fqa.launches = fqa.bwd_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     history = trainer.fit(max_steps=WARMUP_STEPS + TIMED_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = fqa.launches, fqa.bwd_launches
+    counts = read_counts()
     assert trainer.state.step == WARMUP_STEPS + TIMED_STEPS, trainer.state.step
-    assert fwd == bwd == LAUNCHES_PER_STEP * TIMED_STEPS, (fwd, bwd)
+    assert counts == {k: per_step.get(k, 0) * TIMED_STEPS for k in counts}, counts
     losses = [m["loss"] + m["loss_mask"] for m in history]
     assert losses and np.isfinite(losses).all(), losses
     assert all(torch.isfinite(p).all() for p in trainer.state.params.values())
@@ -396,17 +544,36 @@ def phase_train(trainer):
     result = dict(batch=bsz, steps=TIMED_STEPS, wall_s=wall, steps_per_s=TIMED_STEPS / wall,
                   images_per_s=TIMED_STEPS * bsz / wall, step_ms=wall / TIMED_STEPS * 1e3,
                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-                  fwd_launches=fwd, bwd_launches=bwd, logged_losses=losses,
+                  launches=counts, logged_losses=losses,
                   frozen_params=len(trainer.state.frozen),
                   params=sum(p.numel() for p in trainer.state.params.values()))
-    print(f"[8] training: {json.dumps(result)}")
-    return fwd, bwd, wall / TIMED_STEPS
+    print(f"[{tag}] training: {json.dumps(result)}")
+    return counts, wall / TIMED_STEPS
 
 
-def phase_train_profile(trainer, step_s):
+def phase_train_profile(trainer, step_s, tag):
     stream = trainer.data_stream(start_step=trainer.state.step)
     batch = next(stream)
-    device_profile(lambda: trainer.train_step(batch), "9", "train step (batch 64)", step_s)
+    device_profile(lambda: trainer.train_step(batch), tag,
+                   f"train step (batch {trainer.config.train.batch_size})", step_s)
+
+
+def make_trainer(name, tmp, mesh=None):
+    """`Trainer` for a zoo config at full width and depth in fine-tune mode (a
+    seeded reference-format .pth, so the image stream is frozen) on synthetic
+    coco data at the config's shapes."""
+    config = get_config(name)
+    h, w, c = config.z_shape
+    m = config.nnet.mask_size
+    config.dataset = d(name="synthetic", n=128, z_shape=(h, w, 2 * c),
+                       clip_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
+                       mask_size=m)
+    config.train.log_interval = 5
+    config.num_workers = 4
+    config.mesh.update(mesh or {})
+    config.pretrained = os.path.join(tmp, f"{name}.pth")
+    write_pretrained(config.pretrained, config)
+    return Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
 
 
 def unported_bounds():
@@ -416,15 +583,9 @@ def unported_bounds():
     def bound(name, shape, nbytes, flops):
         b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
         by = "bytes" if b_ms >= f_ms else "operations"
-        print(f"[10] bound {name} {shape}: {max(b_ms, f_ms) * 1e3:.1f} us ({by}; "
+        print(f"[14] bound {name} {shape}: {max(b_ms, f_ms) * 1e3:.1f} us ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) - computed, not measured")
 
-    # attention_hop: one ring hop at the 512-res panoptic local shapes
-    # (scripts/bench_ring_hop.py: B8, Lq = Lk = 1063, 8 heads, d 64): q and packed
-    # kv in, o (bf16) and the per-head rowmax / denominator (f32) out.
-    b, lq, lk, h, c = 8, 1063, 1063, 8, 512
-    bound("attention_hop", (b, lq, lk, h, 64), 2 * b * (lq * c + 2 * lk * c + lq * c)
-          + 2 * 4 * b * lq * h, 4 * b * lq * lk * c)
     # fused_attention: (B, H, L, D) attention at U-ViT-L/2 (32, 258, 16, 64).
     b, l, h, c = 32, 258, 16, 1024
     bound("fused_attention", (b, h, l, 64), 2 * 4 * b * l * c, 4 * b * l * l * c)
@@ -446,27 +607,34 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernel(gen)
     bwd_rows = phase_backward(gen)
+    hop_rows = phase_hop(gen)
     phase_forward(gen)
+    phase_ring_forward(gen)
     pipe, contexts, launches, latency = phase_serving()
     phase_profile(pipe, contexts, latency)
     del pipe
 
-    config = get_config("mscoco_uvit_small")
-    h, w, c = config.z_shape
-    m = config.nnet.mask_size
-    config.dataset = d(name="synthetic", n=128, z_shape=(h, w, 2 * c),
-                       clip_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
-                       mask_size=m)
-    config.train.log_interval = 5
-    config.num_workers = 4
     with tempfile.TemporaryDirectory() as tmp:
-        config.pretrained = os.path.join(tmp, "mscoco_uvit_small.pth")
-        write_pretrained(config.pretrained, config)
-        trainer = Trainer(config, os.path.join(tmp, "run"), device="cuda")
-        phase_train_parity(trainer)
-        fwd_train, bwd_train, step_s = phase_train(trainer)
-        phase_train_profile(trainer, step_s)
+        trainer = make_trainer("mscoco_uvit_small", tmp)
+        phase_train_parity(trainer, PARITY_BATCH, ("auto", "plain"), "7")
+        train_counts, step_s = phase_train(
+            trainer, "8", {"fused_attention_qkv": LAUNCHES_PER_STEP,
+                           "fused_attention_qkv_vjp": LAUNCHES_PER_STEP})
+        phase_train_profile(trainer, step_s, "9")
+        del trainer
+        torch.cuda.empty_cache()
 
+        sp_trainer = make_trainer("mscoco_uvit_small_512", tmp,
+                                  mesh=dict(sp=SP, sp_mode="in_process"))
+        assert sp_trainer.config.train.batch_size == SP_BATCH
+        phase_train_parity(sp_trainer, SP_BATCH, ("ring", "ring_plain"), "11")
+        sp_counts, sp_step_s = phase_train(sp_trainer, "12",
+                                           {"attention_hop": HOP_LAUNCHES_PER_STEP})
+        phase_train_profile(sp_trainer, sp_step_s, "13")
+        del sp_trainer
+
+    fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
+        train_counts["fused_attention_qkv_vjp"]
     main_rows = [r for r in rows if tuple(r["shape"]) in MAIN_PATH_SHAPES]
     per_pair = {k: sum(r[k] for r in main_rows) for k in ("ms", "plain_ms", "bound_ms",
                                                           "library_ms")}
@@ -476,7 +644,8 @@ def main() -> int:
         replaces="panopticdiffusionmodels_tpu/ops/pallas/fused_qkv_attention.py:302",
         launches=launches,
         launches_by_path={"serving (3 requests)": launches,
-                          f"training ({TIMED_STEPS} steps)": fwd_train},
+                          f"training ({TIMED_STEPS} steps)": fwd_train,
+                          f"sp training ({TIMED_STEPS} steps)": sp_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -500,9 +669,26 @@ def main() -> int:
         per="one call at L=334 plus one at L=590 (B=64, H=8, D=64), the pair each "
             "dual-stream layer runs per train step; one call is two CUDA kernels",
         shapes=bwd_rows)
+    hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
+    per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",
+                                                             "library_ms")}
+    hop = dict(
+        name="attention_hop", route="cuda",
+        source="panopticdiffusionmodels_torch/ops/kernels/csrc/ring_hop.cu",
+        replaces="panopticdiffusionmodels_tpu/ops/pallas/ring_hop.py:103",
+        launches=sp_counts["attention_hop"],
+        launches_by_path={f"sp training ({TIMED_STEPS} steps)": sp_counts["attention_hop"]},
+        max_abs_err=max(r["max_abs_err"] for r in hop_rows),
+        max_rel_dev=max(r["max_rel_dev"] for r in hop_rows),
+        kernel_ms=per_hop_pair["ms"], **per_hop_pair,
+        bound_by=max(hop_main, key=lambda r: r["bound_ms"])["bound_by"],
+        per="one hop at Lq=Lk=1063 plus one at Lq=Lk=551 (B=16 folded, H=8, D=64, "
+            "nvalid=Lk), the pair each sp=2 dual-stream layer runs twice per train step; "
+            "library_ms is flash SDPA (out, lse) on the same q, k, v",
+        shapes=hop_rows)
     unported_bounds()
     print(card_line())
-    print(json.dumps({"kernels": [kernel, backward]}))
+    print(json.dumps({"kernels": [kernel, backward, hop]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

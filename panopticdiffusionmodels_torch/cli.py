@@ -8,6 +8,16 @@ Port of `panopticdiffusionmodels_tpu/cli.py::main_train` (reference
 `get_config()`, `--config.` overrides (python literals, else strings), and a
 workdir derived from the config name and the overridden fields.  Evaluation
 and sample-grid callbacks come with the evaluation slice.
+
+Sequence-parallel training on several cards, one process per sp rank:
+
+    torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \
+        --config=mscoco_uvit_small_512 --config.mesh.sp=2
+
+Under torchrun (WORLD_SIZE set) the command joins the process group first:
+NCCL with each process on `cuda:LOCAL_RANK`, or gloo with `--device=cpu`.
+On one card, `--config.mesh.sp_mode=in_process` runs every shard in one
+process instead.
 """
 from __future__ import annotations
 
@@ -73,8 +83,26 @@ def _parse(argv):
     return opts, rest
 
 
+def init_distributed(device: str) -> str:
+    """Join the torchrun process group (nccl on cuda:LOCAL_RANK, gloo on the
+    CPU) when WORLD_SIZE says there is one; returns the device to train on."""
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return device
+    if device == "cpu":
+        dist.init_process_group("gloo")
+        return device
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+    return f"cuda:{local}"
+
+
 def main_train(argv: List[str]):
     opts, rest = _parse(argv)
+    device = init_distributed(opts["device"])
     config = load_config(opts["config"])
     hparams = apply_overrides(config, rest)
     config.hparams = "-".join(hparams) if hparams else "default"
@@ -93,7 +121,7 @@ def main_train(argv: List[str]):
         logging.info(f"workdir: {wd}")
         from .train.trainer import Trainer
 
-        return Trainer(config, wd, device=opts["device"]).fit()
+        return Trainer(config, wd, device=device).fit()
     finally:
         root.removeHandler(log_file)
         log_file.close()

@@ -1,7 +1,7 @@
 """Config zoo of the port: the configs it serves so far."""
 import importlib
 
-CONFIG_NAMES = ["mscoco_uvit_small", "synthetic_tiny"]
+CONFIG_NAMES = ["mscoco_uvit_small", "mscoco_uvit_small_512", "synthetic_tiny"]
 
 
 def get_config(name: str):

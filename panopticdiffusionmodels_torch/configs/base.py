@@ -2,7 +2,10 @@
 
 Same field names and values as `panopticdiffusionmodels_tpu/configs/base.py`
 (channel-last `z_shape`, `nnet.name`, `mask_bits` / `mask_size`,
-`compute_dtype`), for the configs this port serves.
+`compute_dtype`), for the configs this port serves.  `mesh.sp_mode` is the
+port's own: how `mesh.sp > 1` is laid out (`parallel/mesh.py`), one process
+per sp rank ('process_group', under torchrun) or every shard in one process
+on one device ('in_process').
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ def d(**kwargs) -> ConfigDict:
 def base_config(seed: int = 1234) -> ConfigDict:
     return d(seed=seed, task="", pred="noise_pred", compute_dtype="bfloat16",
              ema_rate=0.9999, workdir="", pretrained="", mask_channel=1,
-             mesh=d(dp=-1, fsdp=1, sp=1, tp=1, pp=1))
+             mesh=d(dp=-1, fsdp=1, sp=1, tp=1, pp=1, sp_mode="process_group"))
 
 
 def adamw(lr=2e-4, weight_decay=0.03, betas=(0.99, 0.999)):

@@ -102,19 +102,23 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """qkv Linear -> packed-qkv attention -> proj Linear."""
+    """qkv Linear -> packed-qkv attention -> proj Linear.  `sp` is the
+    sequence-parallel context (`parallel/mesh.py`) that `attn_impl='ring'`
+    runs its ring over; the tokens it sees are then this rank's shard."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
-                 qk_scale: Optional[float] = None, attn_impl: str = "infer"):
+                 qk_scale: Optional[float] = None, attn_impl: str = "infer", sp=None):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attn_impl = attn_impl
+        self.sp = sp
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def attend(self, qkv):
-        return attention_qkv(qkv, self.num_heads, scale=self.scale, impl=self.attn_impl)
+        return attention_qkv(qkv, self.num_heads, scale=self.scale, impl=self.attn_impl,
+                             sp=self.sp)
 
     def forward(self, x):
         return self.proj(self.attend(self.qkv(x)))
@@ -129,12 +133,15 @@ class Block(nn.Module):
     around the attention, norm1 -> qkv and proj -> +res -> norm2 -> mlp ->
     +res, are recomputed in backward (non-reentrant `torch.utils.checkpoint`),
     while the attention itself stays outside them, so its output is kept and
-    its forward kernel is not replayed.  Values equal the unchecked block."""
+    its forward kernel is not replayed (under `attn_impl='ring'` the ring's
+    output is the kept tensor, and no hop is relaunched).  Values equal the
+    unchecked block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  skip: bool = False, attn_impl: str = "infer", gelu_approx: bool = False,
-                 use_checkpoint: bool = False, remat_policy: Optional[str] = "save_attn"):
+                 use_checkpoint: bool = False, remat_policy: Optional[str] = "save_attn",
+                 sp=None):
         super().__init__()
         if use_checkpoint and remat_policy != "save_attn":
             raise NotImplementedError(
@@ -142,7 +149,7 @@ class Block(nn.Module):
                 "the other policies come with a later PR")
         self.use_checkpoint = use_checkpoint
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_impl)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_impl, sp)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
         self.skip_linear = nn.Linear(2 * dim, dim) if skip else None

@@ -17,6 +17,13 @@ Blocks are unrolled; the JAX package's scanned layout is a compile-time
 device there, and `utils/weights.py` unstacks it.  `use_checkpoint` /
 `remat_policy` recompute each block's non-attention regions in backward
 (`layers.Block`); `attn_impl='auto'` is the trainable attention.
+
+Sequence parallelism (`sp`, a `parallel.mesh` context, with
+`attn_impl='ring'`): after the embeddings each stream is sharded on its own,
+x (img_len tokens) and m (num_patches tokens), and both are gathered again
+before `norm` and the heads, whose unpatchify and 3x3 convs cross tokens.
+In between every op is token-local except the ring attention, as under the
+JAX package's `constrain_tokens`.
 """
 from __future__ import annotations
 
@@ -63,8 +70,10 @@ class UViTT2I(nn.Module):
         gelu_approx: bool = False,
         use_checkpoint: bool = False,
         remat_policy: Optional[str] = "save_attn",
+        sp=None,
     ):
         super().__init__()
+        self.sp = sp
         self.patch_size = patch_size
         self.in_chans = in_chans
         self.depth = depth
@@ -81,7 +90,7 @@ class UViTT2I(nn.Module):
         def block(skip_on=False):
             return Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
                          skip=skip_on, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                         use_checkpoint=use_checkpoint, remat_policy=remat_policy)
+                         use_checkpoint=use_checkpoint, remat_policy=remat_policy, sp=sp)
 
         half = depth // 2
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
@@ -145,6 +154,21 @@ class UViTT2I(nn.Module):
             x = x + self.pos_embed[:, : self.extras + l]
 
         img_len = self.extras + l
+        sp = self.sp
+        if sp is not None:
+            # Each stream is sharded on its own, so a shard of the mask stream
+            # is [x shard ; m shard] and `couple` splits it at the local
+            # img_len.  The mask stream's ring then sees its tokens in the
+            # order [x_0; m_0; x_1; m_1; ...], a permutation of [x ; m]:
+            # attention is equivariant under a permutation of its tokens
+            # (positions enter through pos_embed only), and every other op of
+            # a block is token-local, so each token's output is unchanged.
+            sp.check_tokens(x.shape[1], "UViTT2I image stream")
+            x = sp.shard(x)
+            if m is not None:
+                sp.check_tokens(m.shape[1], "UViTT2I mask stream")
+                m = sp.shard(m)
+            img_len //= sp.sp
         half = self.depth // 2
 
         def couple(mx, x, index):
@@ -175,6 +199,9 @@ class UViTT2I(nn.Module):
                 mx = self.out_blocks_mask[i](mx, skips_mask.pop())
                 x, m = couple(mx, x, 2 * (half + 1 + i) + 1)
 
+        if sp is not None:
+            x = sp.gather(x)
+            m = None if m is None else sp.gather(m)
         x = self.norm(x)
         mask_pred = None
         if panoptic:

@@ -5,11 +5,13 @@ inference path goes to the hand-written Hopper forward kernel; the training
 path (`'auto'`) is a `torch.autograd.Function` whose forward is that kernel
 (with the log-sum-exp saved) and whose backward is the Hopper backward
 kernel (`ops/kernels`), as the JAX package's custom VJP pairs
-`fused_attention_qkv` with `fused_attention_qkv_vjp`.  The sequence-parallel
-flavour belongs to a later slice of the port.
+`fused_attention_qkv` with `fused_attention_qkv_vjp`.  `'ring'` is the
+sequence-parallel flavour (`ops/ring_attention.py`, one `attention_hop`
+kernel launch per hop), given the sp context of `parallel/mesh.py`.
 """
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -19,14 +21,15 @@ from .kernels.fused_qkv_attention import (
     fused_attention_qkv,
     fused_attention_qkv_vjp,
 )
+from .ring_attention import ring_attention_local
 
 _LATER = {
     # JAX's A/B handle (kernel forward + XLA-recompute backward), picked there
     # only when the backward misses the VMEM budget; on the card its backward
     # would be the plain version on a CUDA path.
     "pallas_recompute": "a later slice (kernel forward + recompute backward)",
-    "ring": "the sequence-parallel slice (attention_hop)",
 }
+log = logging.getLogger(__name__)
 
 
 class QKVAttention(torch.autograd.Function):
@@ -50,10 +53,18 @@ class QKVAttention(torch.autograd.Function):
 
 
 def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = None,
-                  impl: str = "infer") -> torch.Tensor:
+                  impl: str = "infer", sp=None) -> torch.Tensor:
     """Attention from packed qkv; returns (B, L, C) with heads concatenated.
 
     impl:
+      'ring' / 'ring_plain' — with a sequence-parallel context `sp`
+                              (`parallel.mesh`): qkv is this rank's token
+                              shard in sp's layout, and the ring runs its hops
+                              through the `attention_hop` kernel ('ring') or
+                              its plain version ('ring_plain'); trainable.
+                              Without `sp`, as the JAX package does, it warns
+                              for batch > 1 and takes the unsharded path,
+                              here 'auto' (the kernels, plain on CPU);
       'auto' / 'pallas_vjp' — trainable: the forward kernel with lse and the
                               backward kernel (their plain versions on CPU);
       'infer' / 'kernel'    — the forward kernel only (its plain version for
@@ -63,6 +74,14 @@ def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = Non
     """
     if scale is None:
         scale = (qkv.shape[-1] // 3 // heads) ** -0.5
+    if impl in ("ring", "ring_plain"):
+        if sp is not None:
+            return ring_attention_local(qkv, heads, scale, sp, use_kernel=impl == "ring")
+        if qkv.shape[0] > 1:
+            log.warning("attention_qkv: impl=%r without a sequence-parallel context, batch=%d, "
+                        "L=%d: taking the unsharded attention (impl='auto')",
+                        impl, qkv.shape[0], qkv.shape[1])
+        impl = "auto"
     if impl in ("plain", "xla"):
         return attention_qkv_plain(qkv, heads, scale)
     if impl in ("infer", "kernel"):

@@ -17,6 +17,9 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# Every source under csrc/, by name: the forward and backward of the packed
+# qkv attention (fused_qkv_attention.py) and the ring hop (ring_hop.py).
+KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "ring_hop")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

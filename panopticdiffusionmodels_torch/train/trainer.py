@@ -15,7 +15,17 @@ panoptic text-to-image task (reference `train_t2i_discrete.py`):
   * `fit` keeps a bounded queue of in-flight steps and reads a step's loss
     only once `max_inflight_steps` newer steps are queued, so the host does
     not wait on the card every step; it logs to `workdir/metrics.jsonl` and
-    checkpoints to `workdir/ckpts/{step}.ckpt`.
+    checkpoints to `workdir/ckpts/{step}.ckpt`;
+  * `mesh.sp > 1` (the other axes at 1) trains sequence-parallel, as the
+    JAX trainer does: the model's attention becomes the ring
+    (`attn_impl='ring'`) over the context `parallel.mesh.from_mesh` builds.
+    Every sp rank reads the same batch and draws the same noise; under
+    `sp_mode='process_group'` each of the sp processes computes the whole
+    loss after the model's gather, so the loss is scaled by 1/sp before the
+    backward (whose gather transposes to a reduce-scatter) and every
+    gradient, frozen ones too, is summed over the ranks before the norm and
+    AdamW: the step equals the unsharded one.  Only rank 0 writes
+    checkpoints and metrics.
 
 Batches are channel-last numpy arrays as the JAX package's (moments
 (B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1)); the trainer
@@ -43,6 +53,7 @@ from ..data import Loader, get_dataset, prefetch_to_device
 from ..diffusion.schedule import Schedule, l_simple_panoptic, stable_diffusion_beta_schedule
 from ..models import get_nnet
 from ..models.vae import sample_from_moments
+from ..parallel.mesh import from_mesh
 from ..utils.weights import load_torch_state_dict, reference_nnet_state_dict
 from . import checkpoint as ckpt_lib
 from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
@@ -73,16 +84,13 @@ def _check_supported(config) -> None:
     if dp not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in ("fsdp", "tp")):
         raise NotImplementedError(
             f"mesh {dict(mesh)}: data / tensor parallel training comes with the "
-            "distributed slice; this one trains on one device")
+            "distributed slice; this one trains on one device or sequence-parallel (sp)")
     if mesh.get("pp", 1) != 1:
         raise NotImplementedError("mesh.pp > 1 (the boomerang pipeline) comes with the "
                                   "distributed slice")
     if config.optimizer.name != "adamw":
         raise NotImplementedError(f"optimizer {config.optimizer.name!r}: the configs of this "
                                   "slice train with adamw")
-    if mesh.get("sp", 1) != 1:
-        raise NotImplementedError("mesh.sp > 1 (ring attention, attention_hop) comes with "
-                                  "the sequence-parallel slice")
 
 
 class Trainer:
@@ -92,9 +100,12 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): no CUDA device; pass device='cpu'")
+        self.sp = from_mesh(config.get("mesh", {}))
+        self.is_main = self.sp is None or self.sp.rank == 0
         self.workdir = workdir or config.get("workdir", "") or "results/run"
         self.ckpt_root = os.path.join(self.workdir, "ckpts")
-        os.makedirs(self.ckpt_root, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.ckpt_root, exist_ok=True)
 
         ds_kwargs = dict(config.dataset)
         self.dataset = get_dataset(ds_kwargs.pop("name"), **ds_kwargs)
@@ -102,6 +113,12 @@ class Trainer:
         nnet_kwargs = dict(config.nnet)
         nnet_kwargs.pop("name")
         nnet_kwargs["attn_impl"] = "auto"
+        if self.sp is not None:
+            nnet_kwargs.update(attn_impl="ring", sp=self.sp)
+            if self.sp.mode == "in_process":
+                log.info("mesh.sp=%d in_process: every sp shard runs in this process on %s, "
+                         "folded into the batch (the ring's rotation is a torch.roll)",
+                         self.sp.sp, self.device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.seed)
             self.nnet = get_nnet(config.nnet.name, **nnet_kwargs)
@@ -180,9 +197,12 @@ class Trainer:
         for p in self.state.params.values():
             p.grad = None
         accum = int(self.config.train.get("grad_accum", 1))
+        # Each of `world` processes computes the whole loss (sp of them under
+        # sp_mode='process_group', else one); their gradients are summed below.
+        world = 1 if self.sp is None else self.sp.world_size
         if accum <= 1:
             loss, metrics = self._loss(batch, noise)
-            loss.backward()
+            (loss / world).backward()
         else:
             # Micro-batches of B/accum, each with its slice of the draws; the
             # gradient is the mean of theirs, the metrics the mean of theirs.
@@ -191,9 +211,11 @@ class Trainer:
             for i in range(accum):
                 mn = None if noise is None else {k: v.chunk(accum)[i] for k, v in noise.items()}
                 loss, m = self._loss(tuple(x[i] for x in micro), mn)
-                (loss / accum).backward()
+                (loss / (accum * world)).backward()
                 parts.append(m)
             metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
+        if self.sp is not None:
+            self.sp.all_reduce_grads(self.state.params.values())
         grads = [p.grad for p in self.state.params.values() if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
@@ -247,7 +269,7 @@ class Trainer:
             inflight.append(metrics["loss"])
             if len(inflight) > max_inflight:
                 float(inflight.popleft())  # wait for step (step - max_inflight)
-            if step % log_interval == 0:
+            if step % log_interval == 0 and self.is_main:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
                 m["steps_per_sec"] = log_interval / max(time.time() - t0, 1e-9)
@@ -257,6 +279,6 @@ class Trainer:
                 log.info(json.dumps(m))
                 with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
                     f.write(json.dumps(m) + "\n")
-            if save_interval and step % save_interval == 0:
+            if save_interval and step % save_interval == 0 and self.is_main:
                 ckpt_lib.save_checkpoint(self.ckpt_root, self.state)
         return history

@@ -73,7 +73,7 @@ def test_wrapper_refuses_other_devices():
         port_kernel.fused_attention_qkv(x, 2, 0.25)
 
 
-@pytest.mark.parametrize("impl", ["ring", "pallas_recompute"])
+@pytest.mark.parametrize("impl", ["pallas_recompute"])
 def test_later_slice_impls_raise(impl):
     x = torch.zeros((1, 4, 24))
     with pytest.raises(NotImplementedError, match="slice"):

@@ -121,7 +121,7 @@ def test_missing_pretrained_raises(tmp_path):
 
 @pytest.mark.parametrize("field,value,match", [
     ("task", "latent_discrete", "slice"),
-    ("mesh.sp", 2, "sequence-parallel"),
+    ("mesh.tp", 2, "distributed"),
     ("mesh.pp", 2, "distributed"),
     ("nnet.remat_policy", "dots", "later PR"),
     ("optimizer.name", "adam", "adamw"),

@@ -55,16 +55,20 @@ def jax_draws(key, batch, n_timesteps: int = 1000) -> dict:
     return {k: np.array(v) for k, v in dict(z=z, n=n, eps=eps, eps_m=eps_m).items()}
 
 
-def configure(config, use_checkpoint: bool, pretrained: str):
+def configure(config, use_checkpoint: bool, pretrained: str, mesh=None):
     config.nnet.use_checkpoint = use_checkpoint
     config.pretrained = pretrained
+    config.mesh.update(mesh or {})
     return config
 
 
-def jax_reference(workdir, steps, use_checkpoint=False, pretrained=""):
-    """(initial params, [per-step dict(grads, metrics, params, ema, draws)])."""
+def jax_reference(workdir, steps, use_checkpoint=False, pretrained="", mesh=None,
+                  with_grads=True):
+    """(initial params, [per-step dict(grads, metrics, params, ema, draws)]);
+    `mesh` overrides the config's mesh fields, and `with_grads=False` skips
+    the separate gradient pass (no 'grads' entry)."""
     trainer = JaxTrainer(configure(jax_get_config("synthetic_tiny"), use_checkpoint,
-                                   pretrained), str(workdir))
+                                   pretrained, mesh), str(workdir))
     state = trainer.state
     init = to_port(state.params)
     grad_fn = jax.jit(jax.grad(trainer._loss, has_aux=True))
@@ -72,17 +76,18 @@ def jax_reference(workdir, steps, use_checkpoint=False, pretrained=""):
     for i, batch in enumerate(steps):
         key = jax.random.fold_in(trainer.rng, i + 1)
         jb = tuple(jnp.asarray(x) for x in batch)
-        grads, _ = grad_fn(state.params, jb, key)
-        grads = to_port(grads)
+        step = {}
+        if with_grads:
+            step["grads"] = to_port(grad_fn(state.params, jb, key)[0])
         state, metrics = trainer._train_step(state, jb, key)
-        out.append(dict(grads=grads, metrics={k: float(v) for k, v in metrics.items()},
+        out.append(dict(step, metrics={k: float(v) for k, v in metrics.items()},
                         params=to_port(state.params), ema=to_port(state.ema_params),
                         draws=jax_draws(key, batch)))
     return init, out
 
 
-def port_trainer(workdir, use_checkpoint=False, pretrained="", init=None) -> Trainer:
-    trainer = Trainer(configure(get_config("synthetic_tiny"), use_checkpoint, pretrained),
+def port_trainer(workdir, use_checkpoint=False, pretrained="", init=None, mesh=None) -> Trainer:
+    trainer = Trainer(configure(get_config("synthetic_tiny"), use_checkpoint, pretrained, mesh),
                       str(workdir), device="cpu")
     if init is not None:
         trainer.nnet.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in init.items()},
@@ -105,7 +110,7 @@ def assert_step_matches(ours: dict, ref: dict, rtol=1e-4, atol=1e-6):
     for k in ("loss", "loss_mask", "grad_norm"):
         np.testing.assert_allclose(ours["metrics"][k], ref["metrics"][k], rtol=rtol, atol=atol,
                                    err_msg=k)
-    for part in ("grads", "params", "ema"):
+    for part in ("grads", "params", "ema") if "grads" in ref else ("params", "ema"):
         assert sorted(ours[part]) == sorted(ref[part]), part
         for name, want in ref[part].items():
             np.testing.assert_allclose(ours[part][name].numpy(), want, rtol=rtol, atol=atol,
