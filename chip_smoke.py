@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and sequence-parallel training
-paths on one NVIDIA H100 and check their kernels.
+"""Drive the PyTorch port's serving (panoptic and ImageNet-256
+class-conditional), training, sequence-parallel training, (B, H, L, D)
+attention and fused-LayerNorm A/B paths on one NVIDIA H100 and check their
+kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -22,6 +24,20 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      Lk - 64, 0 and a per-row mix, q a strided view of the packed qkv
      (max of the relative deviations of o, m and den < 5e-3), timed beside
      the plain version and flash SDPA;
+     3d. the (B, H, L, D) kernel `fused_attention` vs `attention_plain` at
+     U-ViT-L/2 (32, 16, 258, 64), the U-ViT-H and UNet head dims and one
+     L > 1024, contiguous and as transposed views (relative deviation
+     < 5e-3), timed beside the plain version and SDPA; then
+     `multi_head_attention(impl='pallas')` forward + backward at U-ViT-L/2,
+     one kernel launch, gradient vs the all-plain one < 2e-2;
+     3e. `fused_ln_qkv_attention` (LN-prologue qkv GEMM + attention) vs its
+     plain version at the A/B chain's shapes, L = 1024 and a ragged small L
+     (relative deviation < 5e-3), timed beside the plain version and
+     F.layer_norm + torch.matmul + SDPA;
+     3f. the full-width A/B chain (20 U-ViT-L/2 blocks) through
+     `scripts/bench_fused_ln.main` at B = 32 and 64: ms per forward of each
+     arm, fused vs shipped < 2e-2, exactly 20 kernel-5 launches per fused
+     forward and 20 kernel-1 launches per shipped forward;
   4. the full-width UViTT2I forward (mscoco_uvit_small, B=8) with the kernel
      against the same weights with the plain attention (relative deviation
      < 2e-2 on noise and mask);
@@ -37,6 +53,13 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      exactly 1300 per request (13 blocks x 2 streams x 50 NFE);
   6. one more request under torch.profiler: device time by kernel and the
      device's busy share of the request;
+     6b. ImageNet-256 serving: GenerationPipeline.from_config(
+     "imagenet256_uvit_large"), seeded random weights, bf16 network, f32 VAE;
+     a 6-step request of 32 labels through the kernel against the plain
+     attention (images < 2e-2); then 1 warm-up and 3 requests of 32 labels
+     at 50 steps, CFG 0.4: latency, images/s, peak memory, exactly 1050
+     kernel-1 launches a request (21 blocks x 50 NFE, CFG as one 2x batch);
+     6c. one more ImageNet-256 request under torch.profiler;
   7. training: `Trainer` for mscoco_uvit_small at full width and depth in
      fine-tune mode (a seeded reference-format `.pth` in a temporary
      directory, so the image stream is frozen) on synthetic coco data at the
@@ -57,8 +80,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      images/s, peak memory, finite losses, exactly 52 hop launches a step
      and none of the other kernels;
  13. one more sp step under torch.profiler;
- 14. prints the computed bounds of the kernels still to be ported, the card
-     line, the `kernels` JSON line and, last, the ok line.
+ 14. prints the card line, the `kernels` JSON line (all five kernels) and,
+     last, the ok line.
 """
 from __future__ import annotations
 
@@ -77,11 +100,14 @@ from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.configs.base import d
 from panopticdiffusionmodels_torch.models import get_nnet
 from panopticdiffusionmodels_torch.models.layers import Attention
-from panopticdiffusionmodels_torch.ops.attention import attention_qkv
+from panopticdiffusionmodels_torch.ops.attention import attention_qkv, multi_head_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
+from panopticdiffusionmodels_torch.ops.kernels import fused_attention as fa
+from panopticdiffusionmodels_torch.ops.kernels import fused_ln_qkv_attention as fl
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as fqa
 from panopticdiffusionmodels_torch.ops.kernels import ring_hop
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
+from panopticdiffusionmodels_torch.scripts import bench_fused_ln
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
@@ -89,11 +115,13 @@ from panopticdiffusionmodels_torch.train.trainer import Trainer
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # (B, L, H, D): the serving path's two lengths at batch 2x4, U-ViT-L/2 and U-ViT-H,
-# then the training path's two lengths at batch 64.
+# the training path's two lengths at batch 64, and ImageNet-256 serving
+# (U-ViT-L/2, CFG 2x32).
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
-                 (64, 334, 8, 64), (64, 590, 8, 64)]
+                 (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
-TRAIN_SHAPES = KERNEL_SHAPES[4:]
+TRAIN_SHAPES = KERNEL_SHAPES[4:6]
+IMAGENET_SHAPE = KERNEL_SHAPES[6]
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72)]
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
@@ -114,15 +142,27 @@ HOP_HEADS, HOP_DIM = 8, 64
 # the folded batch.
 SP, SP_BATCH = 2, 8
 HOP_LAUNCHES_PER_STEP = 52
+# (B, H, L, D) attention: U-ViT-L/2 at ImageNet-256 (B=32), the U-ViT-H head
+# dim, the UNet head dim and one L past the JAX function's MAX_FULL_SEQ.
+MHA_SHAPES = [(32, 16, 258, 64), (8, 16, 258, 72), (8, 8, 256, 40), (2, 8, 1100, 64)]
+# (B, L, C, heads) of LayerNorm + qkv + attention: the A/B chain's two
+# batches, the longest L of the whole-sequence path, and a ragged small L.
+LN_SHAPES = [(32, 258, 1024, 16), (64, 258, 1024, 16), (4, 1024, 1024, 16), (2, 37, 256, 4)]
+CHAIN_BATCHES = (32, 64)
+# ImageNet-256 class-conditional serving (imagenet256_uvit_large): requests of
+# 32 labels, 21 blocks x 50 NFE kernel-1 launches a request (CFG as one 2x
+# batch of 64).
+IMAGENET_LABELS, IMAGENET_LAUNCHES = 32, 21 * STEPS
 
 
 def zero_counts() -> None:
-    fqa.launches = fqa.bwd_launches = ring_hop.launches = 0
+    fqa.launches = fqa.bwd_launches = ring_hop.launches = fa.launches = fl.launches = 0
 
 
 def read_counts() -> dict:
     return {"fused_attention_qkv": fqa.launches, "fused_attention_qkv_vjp": fqa.bwd_launches,
-            "attention_hop": ring_hop.launches}
+            "attention_hop": ring_hop.launches, "fused_attention": fa.launches,
+            "fused_ln_qkv_attention": fl.launches}
 
 
 def card_line() -> str:
@@ -147,6 +187,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def bound(nbytes: float, flops: float):
+    """max(bytes / peak bandwidth, operations / peak bf16 rate) in ms, and
+    which of the two it is."""
+    bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
 def phase_environment():
@@ -188,10 +235,8 @@ def phase_kernel(gen):
             lse_ms=cuda_ms(lambda: fqa.fused_attention_qkv(qkv, h, scale, with_lse=True)),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_plain(qkv, h, scale)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
-        bytes_ms = (b * l * 3 * c + b * l * c) * 2 / PEAK_BYTES * 1e3
-        flops_ms = 4 * b * l * l * c / PEAK_BF16_FLOPS * 1e3
-        row.update(bound_ms=max(bytes_ms, flops_ms),
-                   bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+        row["bound_ms"], row["bound_by"] = bound((b * l * 3 * c + b * l * c) * 2,
+                                                 4 * b * l * l * c)
         print(f"[3] B{b} L{l} H{h} D{d}: rel {rel:.2e} max|err| {max_abs:.2e} lse rel "
               f"{lse_rel:.1e} | kernel {row['ms']:.4f} ms (with lse {row['lse_ms']:.4f}), "
               f"plain {row['plain_ms']:.4f} ms, sdpa "
@@ -235,10 +280,8 @@ def phase_backward(gen):
             ms=cuda_ms(lambda: fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_vjp_plain(qkv, g, h, scale), iters=5),
             library_ms=cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)))
-        bytes_ms = 14 * b * l * c / PEAK_BYTES * 1e3  # qkv + g read, dqkv written, bf16
-        flops_ms = 10 * b * l * l * c / PEAK_BF16_FLOPS * 1e3
-        row.update(bound_ms=max(bytes_ms, flops_ms),
-                   bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+        # qkv + g read, dqkv written, bf16
+        row["bound_ms"], row["bound_by"] = bound(14 * b * l * c, 10 * b * l * l * c)
         print(f"[3b] B{b} L{l} H{h} D{d}: dqkv rel {rel:.2e} max|err| {max_abs:.2e} | kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -252,10 +295,8 @@ def hop_bound(b, lq, lk, c, h):
     """q and packed kv read once (bf16), o (bf16), m and den (f32) and nvalid
     written / read once; 4*B*Lq*Lk*C operations (every key of the hop is
     scored, padding too)."""
-    bytes_ms = (2 * b * (lq * c + 2 * lk * c + lq * c) + 2 * 4 * b * lq * h + 4 * b) \
-        / PEAK_BYTES * 1e3
-    flops_ms = 4 * b * lq * lk * c / PEAK_BF16_FLOPS * 1e3
-    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+    return bound(2 * b * (lq * c + 2 * lk * c + lq * c) + 2 * 4 * b * lq * h + 4 * b,
+                 4 * b * lq * lk * c)
 
 
 def phase_hop(gen):
@@ -310,6 +351,125 @@ def phase_hop(gen):
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         rows.append(row)
     return rows
+
+
+def phase_mha(gen):
+    """Kernel 4, `fused_attention` over (B, H, L, D), against
+    `attention_plain` in bf16 (relative deviation < 5e-3): contiguous q, k, v
+    and the transposed views of a packed (B, L, 3, H, D) projection; timed
+    beside the plain version and SDPA.  Then the trainable entry
+    `multi_head_attention(impl='pallas')` (kernel forward + plain recompute
+    backward) at U-ViT-L/2, its gradient against the all-plain one (autograd
+    through `attention_plain`): dq, dk, dv < 2e-2; the kernel's counter is
+    zeroed just before and read just after."""
+    rows = []
+    for b, h, l, d in MHA_SHAPES:
+        packed = (torch.randn((b, l, 3, h, d), generator=gen, device="cuda") * 0.5
+                  ).to(torch.bfloat16)
+        views = packed.permute(2, 0, 3, 1, 4)  # q, k, v (B, H, L, D), strided
+        q, k, v = (t.contiguous() for t in views)
+        scale = d ** -0.5
+        ref = fa.attention_plain(q, k, v, scale)
+        outs = {"contiguous": fa.fused_attention(q, k, v, scale),
+                "strided": fa.fused_attention(*views, scale)}
+        torch.cuda.synchronize()
+        rels = {name: rel_dev(o, ref) for name, o in outs.items()}
+        max_abs = max(float((o.float() - ref.float()).abs().max()) for o in outs.values())
+        row = dict(shape=[b, h, l, d], max_rel_dev=max(rels.values()), max_abs_err=max_abs,
+                   ms=cuda_ms(lambda: fa.fused_attention(q, k, v, scale)),
+                   plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, scale), iters=5),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                             scale=scale)))
+        row["bound_ms"], row["bound_by"] = bound(8 * b * h * l * d, 4 * b * h * l * l * d)
+        print(f"[3d] B{b} H{h} L{l} D{d}: rel contiguous {rels['contiguous']:.2e} strided "
+              f"{rels['strided']:.2e} max|err| {max_abs:.2e} | kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        assert all(torch.isfinite(o.float()).all() for o in outs.values()), (b, h, l, d)
+        assert max(rels.values()) < 5e-3, (b, h, l, d, rels)
+        rows.append(row)
+
+    b, h, l, d = MHA_SHAPES[0]
+    q, k, v = ((torch.randn((b, h, l, d), generator=gen, device="cuda") * 0.5)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    g = torch.randn((b, h, l, d), generator=gen, device="cuda").to(torch.bfloat16)
+    zero_counts()
+    out = multi_head_attention(q, k, v, impl="pallas")
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    launches = read_counts()["fused_attention"]
+    assert launches == 1, launches
+    ref = torch.autograd.grad(fa.attention_plain(q, k, v, d ** -0.5), (q, k, v), g)
+    grad_rels = [rel_dev(a, r) for a, r in zip(grads, ref)]
+    with torch.no_grad():
+        fwd_rel = rel_dev(out, fa.attention_plain(q, k, v, d ** -0.5))
+    print(f"[3d] multi_head_attention(impl='pallas') B{b} H{h} L{l} D{d}: forward rel "
+          f"{fwd_rel:.2e}, gradient vs all-plain "
+          f"dq {grad_rels[0]:.2e} dk {grad_rels[1]:.2e} dv {grad_rels[2]:.2e} (bar 2e-2), "
+          f"{launches} kernel launch")
+    assert all(torch.isfinite(t.float()).all() for t in grads) and max(grad_rels) < 2e-2, \
+        grad_rels
+    return rows, launches
+
+
+def phase_ln_qkv(gen):
+    """Kernel 5, `fused_ln_qkv_attention`, against its plain version in bf16
+    (relative deviation < 5e-3) at the chain's two batches, L = 1024 and a
+    ragged small L; timed beside the plain version and the three library
+    calls F.layer_norm + torch.matmul + SDPA on the same inputs."""
+    rows = []
+    for b, l, c, h in LN_SHAPES:
+        x = (torch.randn((b, l, c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        w = (torch.randn((c, 3 * c), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        scale = (c // h) ** -0.5
+        out = fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale)
+        ref = fl.fused_ln_qkv_attention_plain(x, gamma, beta, w, h, scale)
+        torch.cuda.synchronize()
+        rel = rel_dev(out, ref)
+        max_abs = float((out.float() - ref.float()).abs().max())
+
+        def library():
+            xn = F.layer_norm(x.float(), (c,), gamma, beta, 1e-5).to(torch.bfloat16)
+            q, k, v = torch.matmul(xn, w).view(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+        row = dict(shape=[b, l, c, h], max_rel_dev=rel, max_abs_err=max_abs,
+                   ms=cuda_ms(lambda: fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale)),
+                   plain_ms=cuda_ms(lambda: fl.fused_ln_qkv_attention_plain(
+                       x, gamma, beta, w, h, scale), iters=5),
+                   library_ms=cuda_ms(library),
+                   library="F.layer_norm + torch.matmul + scaled_dot_product_attention")
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * (2 * b * l * c + 3 * c * c) + 8 * c, 2 * b * l * c * 3 * c + 4 * b * l * l * c)
+        print(f"[3e] B{b} L{l} C{c} H{h}: rel {rel:.2e} max|err| {max_abs:.2e} | kernels "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, layer_norm+matmul+sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        assert torch.isfinite(out.float()).all() and rel < 5e-3, (b, l, c, h, rel)
+        rows.append(row)
+    return rows
+
+
+def phase_chain():
+    """The full-width A/B chain (U-ViT-L/2 blocks, 20 deep) through
+    `bench_fused_ln.main` at B = 32 and 64: fused vs shipped < 2e-2, and
+    exactly one kernel-5 launch per block of every fused forward and one
+    kernel-1 launch per block of every shipped forward."""
+    zero_counts()
+    results = bench_fused_ln.main([str(b) for b in CHAIN_BATCHES])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = sum(r["forwards"] for r in results.values())
+    want = {"fused_ln_qkv_attention": bench_fused_ln.DEPTH * forwards,
+            "fused_attention_qkv": bench_fused_ln.DEPTH * forwards}
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+    for b, r in results.items():
+        print(f"[3f] chain B={b}: shipped {r['shipped_ms']:.2f} ms/fwd, fused "
+              f"{r['fused_ms']:.2f} ms/fwd, fused vs shipped rel {r['rel']:.2e} (bar 2e-2), "
+              f"{r['forwards']} forwards an arm, {bench_fused_ln.DEPTH} launches each")
+        assert np.isfinite(r["rel"]) and r["rel"] < 2e-2, (b, r)
+    return results, counts
 
 
 def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
@@ -473,6 +633,58 @@ def phase_profile(pipe, contexts, latency):
                    "request", latency)
 
 
+def phase_imagenet():
+    """Class-conditional serving of imagenet256_uvit_large: seeded random
+    weights, bf16 network, f32 VAE decode to 256x256.  A 6-step request of 32
+    labels through the kernel against the same request through the plain
+    attention (images < 2e-2); then 1 warm-up and 3 timed requests of 32
+    labels at 50 steps, CFG 0.4, with every launch counter zeroed just before
+    and read just after: exactly 1050 kernel-1 launches a request and none
+    of the other kernels."""
+    pipe = GenerationPipeline.from_config("imagenet256_uvit_large", seed=0)
+    assert pipe.class_cond and float(pipe.config.sample.scale) == 0.4
+    labels = np.random.default_rng(0).integers(0, 1000, size=(REQUESTS + 1, IMAGENET_LABELS))
+    pipe.generate(labels=labels[0], steps=3)  # warm-up, not counted
+
+    z, _ = pipe._draw(IMAGENET_LABELS, torch.Generator(device="cuda").manual_seed(7))
+    y = torch.as_tensor(labels[0], device="cuda")
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        outs[impl] = pipe.sample(z, None, y, steps=6)[0]
+    set_attn_impl(pipe.nnet, "infer")
+    rel = rel_dev(outs["kernel"], outs["plain"])
+    print(f"[6b] ImageNet-256 6-step request of {IMAGENET_LABELS} labels, images: kernel vs "
+          f"plain rel {rel:.2e} (bar 2e-2)")
+    assert outs["kernel"].shape == (IMAGENET_LABELS, 3, 256, 256), outs["kernel"].shape
+    assert torch.isfinite(outs["kernel"]).all() and rel < 2e-2, rel
+
+    pipe.generate(labels=labels[0], steps=STEPS, seed=99)  # warm-up at 50 steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    latencies = []
+    for i in range(REQUESTS):
+        t0 = time.perf_counter()
+        images = pipe.generate(labels=labels[i + 1], steps=STEPS, seed=i)
+        latencies.append(time.perf_counter() - t0)
+        assert fqa.launches == (i + 1) * IMAGENET_LAUNCHES, (i, fqa.launches)
+        assert images.shape == (IMAGENET_LABELS, 256, 256, 3), images.shape
+        assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    counts = read_counts()
+    want = {"fused_attention_qkv": REQUESTS * IMAGENET_LAUNCHES}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    result = dict(requests=REQUESTS, labels_per_request=IMAGENET_LABELS, steps=STEPS,
+                  cfg_scale=0.4, launches=counts["fused_attention_qkv"],
+                  latency_s=latencies, mean_latency_s=float(np.mean(latencies)),
+                  images_per_s=REQUESTS * IMAGENET_LABELS / sum(latencies),
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[6b] ImageNet-256 serving: {json.dumps(result)}")
+    device_profile(lambda: pipe.generate(labels=labels[0], steps=STEPS, seed=9), "6c",
+                   f"ImageNet-256 request ({IMAGENET_LABELS} labels)", min(latencies))
+    return counts["fused_attention_qkv"]
+
+
 def write_pretrained(path: str, config) -> None:
     """A reference-format .pth from a seeded model, zero convs opened so the
     mask stream feeds the image stream."""
@@ -576,27 +788,6 @@ def make_trainer(name, tmp, mesh=None):
     return Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
 
 
-def unported_bounds():
-    """Computed (not measured) bounds of the TPU kernels still to be ported, at
-    the shapes where the JAX package runs them, bf16: max(bytes / 3.35 TB/s,
-    operations / 989 TFLOP/s), each input read once, each output written once."""
-    def bound(name, shape, nbytes, flops):
-        b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-        by = "bytes" if b_ms >= f_ms else "operations"
-        print(f"[14] bound {name} {shape}: {max(b_ms, f_ms) * 1e3:.1f} us ({by}; "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) - computed, not measured")
-
-    # fused_attention: (B, H, L, D) attention at U-ViT-L/2 (32, 258, 16, 64).
-    b, l, h, c = 32, 258, 16, 1024
-    bound("fused_attention", (b, h, l, 64), 2 * 4 * b * l * c, 4 * b * l * l * c)
-    # fused_ln_qkv_attention: LayerNorm + x W_qkv + attention at U-ViT-L/2
-    # (scripts/bench_fused_ln.py: B32, L258, C1024, 16 heads): x, W_qkv and the
-    # LayerNorm affine in, the attention output out.
-    bound("fused_ln_qkv_attention", (b, l, h, 64), 2 * (b * l * c + 3 * c * c + 2 * c
-                                                        + b * l * c),
-          2 * b * l * c * 3 * c + 4 * b * l * l * c)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -608,11 +799,16 @@ def main() -> int:
     rows = phase_kernel(gen)
     bwd_rows = phase_backward(gen)
     hop_rows = phase_hop(gen)
+    mha_rows, mha_launches = phase_mha(gen)
+    ln_rows = phase_ln_qkv(gen)
+    chain, chain_counts = phase_chain()
     phase_forward(gen)
     phase_ring_forward(gen)
     pipe, contexts, launches, latency = phase_serving()
     phase_profile(pipe, contexts, latency)
     del pipe
+    imagenet_launches = phase_imagenet()
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = make_trainer("mscoco_uvit_small", tmp)
@@ -645,13 +841,18 @@ def main() -> int:
         launches=launches,
         launches_by_path={"serving (3 requests)": launches,
                           f"training ({TIMED_STEPS} steps)": fwd_train,
-                          f"sp training ({TIMED_STEPS} steps)": sp_counts["fused_attention_qkv"]},
+                          f"sp training ({TIMED_STEPS} steps)": sp_counts["fused_attention_qkv"],
+                          "ImageNet-256 serving (3 requests)": imagenet_launches,
+                          "A/B chain, shipped and fused arms (B=32, 64)":
+                              chain_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in main_rows) else "operations",
         per="one launch at L=334 plus one at L=590 (B=8, H=8, D=64), the pair each "
-            "dual-stream layer runs per NFE",
+            "dual-stream layer runs per NFE; the ImageNet-256 serving shape is the row "
+            f"{list(IMAGENET_SHAPE)}; the fused arm of the A/B chain launches this kernel "
+            "inside fused_ln_qkv_attention, which counts it there",
         shapes=rows)
     train_rows = [r for r in bwd_rows if tuple(r["shape"]) in TRAIN_SHAPES]
     per_step = {k: sum(r[k] for r in train_rows) for k in ("ms", "plain_ms", "bound_ms",
@@ -686,9 +887,41 @@ def main() -> int:
             "nvalid=Lk), the pair each sp=2 dual-stream layer runs twice per train step; "
             "library_ms is flash SDPA (out, lse) on the same q, k, v",
         shapes=hop_rows)
-    unported_bounds()
+    mha_main = mha_rows[0]
+    mha = dict(
+        name="fused_attention", route="cuda",
+        source="panopticdiffusionmodels_torch/ops/kernels/csrc/fused_attention.cu",
+        replaces="panopticdiffusionmodels_tpu/ops/pallas/fused_attention.py:63",
+        launches=mha_launches,
+        launches_by_path={"multi_head_attention(impl='pallas') forward + backward at "
+                          "U-ViT-L/2": mha_launches},
+        max_abs_err=max(r["max_abs_err"] for r in mha_rows),
+        max_rel_dev=max(r["max_rel_dev"] for r in mha_rows),
+        kernel_ms=mha_main["ms"], **{k: mha_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms")},
+        per=f"one launch at (B, H, L, D) = {tuple(mha_main['shape'])}; library_ms is "
+            "scaled_dot_product_attention on the same q, k, v",
+        shapes=mha_rows)
+    ln_main = ln_rows[0]
+    ln = dict(
+        name="fused_ln_qkv_attention", route="cuda",
+        source="panopticdiffusionmodels_torch/ops/kernels/csrc/fused_ln_qkv_attention.cu",
+        replaces="panopticdiffusionmodels_tpu/ops/pallas/fused_ln_qkv_attention.py:57",
+        launches=chain_counts["fused_ln_qkv_attention"],
+        launches_by_path={"A/B chain, fused arm (B=32, 64)":
+                          chain_counts["fused_ln_qkv_attention"]},
+        max_abs_err=max(r["max_abs_err"] for r in ln_rows),
+        max_rel_dev=max(r["max_rel_dev"] for r in ln_rows),
+        kernel_ms=ln_main["ms"], **{k: ln_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")},
+        per=f"one call at (B, L, C, heads) = {tuple(ln_main['shape'])}: the LN-prologue qkv "
+            "GEMM launch plus the packed-qkv attention launch (fused_qkv_attention.cu); "
+            "library_ms is F.layer_norm + torch.matmul + scaled_dot_product_attention, "
+            "three calls",
+        chain={str(b): r for b, r in chain.items()},
+        shapes=ln_rows)
     print(card_line())
-    print(json.dumps({"kernels": [kernel, backward, hop]}))
+    print(json.dumps({"kernels": [kernel, backward, hop, mha, ln]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -59,6 +59,16 @@ def autoencoder_block(pretrained_path="assets/stable-diffusion/autoencoder_kl.pt
     return d(pretrained_path=pretrained_path, scale_factor=scale_factor)
 
 
+def uvit(img_size, patch_size, embed_dim, depth, num_heads, in_chans=3, num_classes=-1,
+         mlp_ratio=4, qkv_bias=False, mlp_time_embed=False, use_checkpoint=False, conv=True,
+         scan_blocks=False, remat_policy="save_attn", gelu_approx=False):
+    return d(name="uvit", remat_policy=remat_policy, gelu_approx=gelu_approx,
+             img_size=img_size, patch_size=patch_size, in_chans=in_chans,
+             embed_dim=embed_dim, depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
+             qkv_bias=qkv_bias, mlp_time_embed=mlp_time_embed, num_classes=num_classes,
+             use_checkpoint=use_checkpoint, conv=conv, scan_blocks=scan_blocks)
+
+
 def uvit_t2i(img_size, patch_size, embed_dim, depth, num_heads, in_chans=4,
              mlp_ratio=4, qkv_bias=False, mlp_time_embed=False, clip_dim=768,
              num_clip_token=77, enable_panoptic=True, separate=True,

@@ -1,3 +1,4 @@
+from .uvit import UViT
 from .uvit_t2i import UViTT2I
 
 # Config fields the port's constructors do not take: `scan_blocks` is a JAX
@@ -13,7 +14,7 @@ def get_nnet(name: str, **kwargs):
     if name == "uvit_t2i":
         return UViTT2I(**kwargs)
     if name == "uvit":
-        raise NotImplementedError("models/uvit.py comes with the ImageNet-256 slice")
+        return UViT(**kwargs)
     if name == "unet_t2i":
         raise NotImplementedError("models/unet.py comes with the UNet-family slice")
     raise NotImplementedError(name)

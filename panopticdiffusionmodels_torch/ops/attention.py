@@ -1,6 +1,7 @@
-"""Attention dispatch for the packed (B, L, 3C) qkv layout.
+"""Attention dispatch: the packed (B, L, 3C) qkv layout and (B, H, L, D).
 
-Port of `panopticdiffusionmodels_tpu/ops/attention.py::attention_qkv`.  The
+Port of `panopticdiffusionmodels_tpu/ops/attention.py::attention_qkv` and
+`::multi_head_attention`.  The
 inference path goes to the hand-written Hopper forward kernel; the training
 path (`'auto'`) is a `torch.autograd.Function` whose forward is that kernel
 (with the log-sum-exp saved) and whose backward is the Hopper backward
@@ -8,6 +9,8 @@ kernel (`ops/kernels`), as the JAX package's custom VJP pairs
 `fused_attention_qkv` with `fused_attention_qkv_vjp`.  `'ring'` is the
 sequence-parallel flavour (`ops/ring_attention.py`, one `attention_hop`
 kernel launch per hop), given the sp context of `parallel/mesh.py`.
+`multi_head_attention` is the (B, H, L, D) entry: the plain path, or the
+`fused_attention` kernel forward with its plain recompute backward.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .kernels.fused_attention import FusedAttention, xla_attention
 from .kernels.fused_qkv_attention import (
     attention_qkv_plain,
     fused_attention_qkv,
@@ -91,4 +95,28 @@ def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = Non
     if impl in _LATER:
         raise NotImplementedError(
             f"attention_qkv impl={impl!r} is not ported yet: it comes with {_LATER[impl]}")
+    raise ValueError(f"unknown attention impl: {impl!r}")
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
+    """Scaled dot-product attention over (B, H, L, D) tensors.
+
+    impl:
+      'auto' / 'infer' — the plain path, as the JAX package resolves them
+                         there (the inference kernel lives behind
+                         `attention_qkv`, which needs no transposes);
+      'xla' / 'plain'  — the plain PyTorch version of the JAX
+                         `_xla_attention` (P in v's dtype for PV), on any
+                         device, differentiable by autograd;
+      'pallas' / 'kernel' — the `fused_attention` kernel forward (its plain
+                         version, f32 throughout, on CPU tensors) with the
+                         JAX package's f32 recompute backward; trainable.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl in ("auto", "infer", "xla", "plain"):
+        return xla_attention(q, k, v, scale)
+    if impl in ("pallas", "kernel"):
+        return FusedAttention.apply(q, k, v, scale)
     raise ValueError(f"unknown attention impl: {impl!r}")

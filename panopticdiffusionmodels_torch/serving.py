@@ -1,6 +1,6 @@
 """Inference API of the port: load a config and weights once, generate batches.
 
-Port of the t2i / panoptic DPM-Solver branch of
+Port of the t2i / panoptic and the class-conditional DPM-Solver branches of
 `panopticdiffusionmodels_tpu/serving.py::GenerationPipeline`:
 
     from panopticdiffusionmodels_torch.serving import GenerationPipeline
@@ -9,12 +9,17 @@ Port of the t2i / panoptic DPM-Solver branch of
                                           vae_path="autoencoder_kl.pth")
     images, masks = pipe.generate(contexts=clip_contexts, steps=50)
 
-A request runs 50-NFE order-3 DPM-Solver++ ('fast'), mask-aware, with CFG as
-one 2x-batch forward per NFE, then the KL-VAE decode and the analog-bit ->
-panoptic-id decode.  Entry points run on the card unless the caller passes
-`device="cpu"`.  The network computes in `config.compute_dtype` (bf16: GEMMs
-in bf16 with f32 accumulation; norms, softmax and the solver state in f32);
-the VAE runs in f32, as in the JAX package.
+    pipe = GenerationPipeline.from_config("imagenet256_uvit_large")
+    images = pipe.generate(labels=[207, 360, 387, 974], steps=50)
+
+A request runs 50-NFE order-3 DPM-Solver++ ('fast'), mask-aware for the
+panoptic model, with CFG as one 2x-batch forward per NFE (the empty context,
+or the null class num_classes - 1), then the KL-VAE decode and, for the
+panoptic model, the analog-bit -> panoptic-id decode.  Entry points run on
+the card unless the caller passes `device="cpu"`.  The network computes in
+`config.compute_dtype` (bf16: GEMMs in bf16 with f32 accumulation; norms,
+softmax and the solver state in f32); the VAE runs in f32, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 
 from .configs import CONFIG_NAMES, get_config
 from .diffusion.analog_bits import analog_to_ints
-from .diffusion.cfg import make_cfg_t2i
+from .diffusion.cfg import make_cfg_class_cond, make_cfg_t2i
 from .diffusion.schedule import Schedule, stable_diffusion_beta_schedule
 from .models import get_nnet
 from .models.vae import get_model as get_vae
@@ -47,15 +52,19 @@ def _batch_seed(seed: int, i: int) -> int:
 
 
 class GenerationPipeline:
-    """Text-conditioned image + panoptic-mask generation."""
+    """Text-conditioned image + panoptic-mask generation, or class-conditional
+    image generation (`uvit` with num_classes > 0)."""
 
     def __init__(self, config, nnet: torch.nn.Module, vae: Optional[torch.nn.Module] = None,
                  empty_context=None, device="cuda"):
-        if config.nnet.name != "uvit_t2i":
+        self.class_cond = config.nnet.name == "uvit" and config.nnet.get("num_classes", -1) > 0
+        if config.nnet.name != "uvit_t2i" and not self.class_cond:
             raise NotImplementedError(
-                f"serving {config.nnet.name!r} comes with a later slice of the port")
+                f"serving {config.nnet.name!r} (num_classes="
+                f"{config.nnet.get('num_classes')}) comes with a later slice of the port")
         algorithm = config.sample.get("algorithm", "dpm_solver")
-        if config.get("task", "") not in ("t2i_discrete", "") or algorithm != "dpm_solver":
+        tasks = ("latent_discrete", "") if self.class_cond else ("t2i_discrete", "")
+        if config.get("task", "") not in tasks or algorithm != "dpm_solver":
             raise NotImplementedError(
                 f"serving task={config.get('task')!r} / algorithm={algorithm!r} comes "
                 "with a later slice of the port")
@@ -67,18 +76,20 @@ class GenerationPipeline:
         betas = stable_diffusion_beta_schedule()
         self.N = Schedule(betas).N
         self.ns = NoiseScheduleVP("discrete", betas=betas)
-        self.panoptic = bool(config.nnet.enable_panoptic)
-        if empty_context is None:
-            if config.sample.get("cfg", False):
-                log.warning(
-                    "serving: CFG is enabled but no empty_context was given — guidance "
-                    "will extrapolate against a ZEROS context the model never saw in "
-                    "training; pass empty_context_path=.../empty_context.npy for correct "
-                    "unconditional guidance")
-            empty_context = np.zeros((config.nnet.num_clip_token, config.nnet.clip_dim),
-                                     np.float32)
-        self.empty_context = torch.as_tensor(np.asarray(empty_context, np.float32),
-                                             device=self.device)
+        self.panoptic = not self.class_cond and bool(config.nnet.get("enable_panoptic", True))
+        self.empty_context = None  # the unconditional CLIP context of a t2i model
+        if not self.class_cond:
+            if empty_context is None:
+                if config.sample.get("cfg", False):
+                    log.warning(
+                        "serving: CFG is enabled but no empty_context was given — guidance "
+                        "will extrapolate against a ZEROS context the model never saw in "
+                        "training; pass empty_context_path=.../empty_context.npy for correct "
+                        "unconditional guidance")
+                empty_context = np.zeros((config.nnet.num_clip_token, config.nnet.clip_dim),
+                                         np.float32)
+            self.empty_context = torch.as_tensor(np.asarray(empty_context, np.float32),
+                                                 device=self.device)
 
     @classmethod
     def from_config(cls, config_or_name, nnet_path: Optional[str] = None,
@@ -114,20 +125,32 @@ class GenerationPipeline:
     # --- generation ------------------------------------------------------
 
     @torch.no_grad()
-    def sample(self, z: torch.Tensor, m0: Optional[torch.Tensor], context: torch.Tensor,
+    def sample(self, z: torch.Tensor, m0: Optional[torch.Tensor], cond: torch.Tensor,
                steps: Optional[int] = None):
         """The sampler on given noise: z (n, C, h, w) and m0 (n, mask_bits,
-        mask_size, mask_size), both f32 on the pipeline's device.  Returns
-        (decoded images (n, 3, H, W) or latents without a VAE, pred_mask)."""
+        mask_size, mask_size) or None, both f32 on the pipeline's device;
+        `cond` is the CLIP context (n, 77, clip_dim) or, for a
+        class-conditional model, the labels (n,).  Returns (decoded images
+        (n, 3, H, W) or latents without a VAE, pred_mask or None)."""
         steps = steps or self.config.sample.sample_steps
         scale = float(self.config.sample.get("scale", 0.0))
-        cfg_fn = make_cfg_t2i(
-            lambda xx, tt, cc, mask_token=None: self.nnet(xx, tt, cc, mask_token=mask_token),
-            self.empty_context, scale=scale, enabled=bool(self.config.sample.get("cfg", False)))
+        enabled = bool(self.config.sample.get("cfg", False))
+        if self.class_cond:
+            cfg_fn = make_cfg_class_cond(lambda xx, tt, yy: self.nnet(xx, tt, yy),
+                                         null_label=self.config.nnet.num_classes - 1,
+                                         scale=scale, enabled=enabled)
+
+            def model_fn(xx, tt, mask_token=None):
+                return cfg_fn(xx, tt * self.N, cond)
+        else:
+            cfg_fn = make_cfg_t2i(
+                lambda xx, tt, cc, mask_token=None: self.nnet(xx, tt, cc, mask_token=mask_token),
+                self.empty_context, scale=scale, enabled=enabled)
+
+            def model_fn(xx, tt, mask_token=None):
+                return cfg_fn(xx, tt * self.N, cond, mask_token=mask_token)
         solver = DPMSolver(
-            lambda xx, tt, mask_token=None: cfg_fn(xx, tt * self.N, context,
-                                                   mask_token=mask_token),
-            self.ns, predict_x0=True,
+            model_fn, self.ns, predict_x0=True,
             accel_tau=float(self.config.sample.get("accel", 0.0)),
             cfg_interval=tuple(self.config.sample.get("cfg_interval", ())) or None)
         out = solver.sample(z, steps=steps, eps=1.0 / self.N, T=1.0, order=3,
@@ -146,14 +169,27 @@ class GenerationPipeline:
             m0 = torch.randn((n, bits, ms, ms), generator=generator, device=self.device)
         return z, m0
 
-    def _context(self, prompts, contexts, labels, n):
+    def _cond(self, prompts, contexts, labels, n):
+        """The conditioning of one request: labels (n,) int64 for a
+        class-conditional model (n= alone gives n samples of the null class),
+        else CLIP contexts (n, 77, clip_dim) f32 (n= alone gives the empty
+        context)."""
+        if self.class_cond:
+            if prompts is not None or contexts is not None:
+                raise ValueError("a class-conditional model takes labels= or n=, not "
+                                 "prompts= / contexts=")
+            if labels is None:
+                if n is None:
+                    raise ValueError("generate needs labels= or n=")
+                labels = np.full((n,), self.config.nnet.num_classes - 1)
+            return torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
+        if labels is not None:
+            raise ValueError("labels= is for class-conditional models; a text-to-image "
+                             "model takes contexts=")
         if prompts is not None:
             raise NotImplementedError(
                 "prompts= needs the frozen CLIP text encoder, which comes with a later "
                 "slice of the port; pass pre-extracted CLIP contexts= instead")
-        if labels is not None:
-            raise NotImplementedError("labels= (class-conditional models) comes with the "
-                                      "ImageNet-256 slice of the port")
         if contexts is not None:
             return torch.as_tensor(np.asarray(contexts, np.float32), device=self.device)
         if n is None:
@@ -168,18 +204,18 @@ class GenerationPipeline:
         ids = analog_to_ints(pred_mask.permute(0, 2, 3, 1), n=self.config.nnet.mask_bits)
         return images01, ids.cpu().numpy()
 
-    def _run(self, context, seed_value: int, steps: int):
+    def _run(self, cond, seed_value: int, steps: int):
         g = torch.Generator(device=self.device).manual_seed(seed_value)
-        z, m0 = self._draw(context.shape[0], g)
-        return self.sample(z, m0, context, steps)
+        z, m0 = self._draw(cond.shape[0], g)
+        return self.sample(z, m0, cond, steps)
 
     def generate(self, prompts: Optional[Sequence[str]] = None, contexts=None,
                  labels=None, n: Optional[int] = None, steps: Optional[int] = None,
                  seed: int = 0):
         """Images in [0, 1] NHWC (numpy), plus integer panoptic-id maps for
         panoptic models: (images, mask_ids)."""
-        context = self._context(prompts, contexts, labels, n)
-        out = self._run(context, seed, steps or self.config.sample.sample_steps)
+        cond = self._cond(prompts, contexts, labels, n)
+        out = self._run(cond, seed, steps or self.config.sample.sample_steps)
         return self._postprocess(*out)
 
     def generate_batches(self, batches, steps: Optional[int] = None, seed: int = 0):
@@ -190,9 +226,9 @@ class GenerationPipeline:
         steps = steps or self.config.sample.sample_steps
         pending = None
         for i, kw in enumerate(batches):
-            context = self._context(kw.get("prompts"), kw.get("contexts"),
-                                    kw.get("labels"), kw.get("n"))
-            out = self._run(context, _batch_seed(seed, i), steps)
+            cond = self._cond(kw.get("prompts"), kw.get("contexts"), kw.get("labels"),
+                              kw.get("n"))
+            out = self._run(cond, _batch_seed(seed, i), steps)
             if pending is not None:
                 yield self._postprocess(*pending)
             pending = out

@@ -73,8 +73,9 @@ def _check_supported(config) -> None:
     task = config.get("task", "")
     if task != "t2i_discrete":
         raise NotImplementedError(
-            f"task {task!r} is not ported yet: this slice trains t2i_discrete; "
-            "pixel_sde / latent_sde / latent_discrete come with their own slices")
+            f"task {task!r} is not ported yet: the port trains t2i_discrete; "
+            "pixel_sde / latent_sde / latent_discrete come with their own slices, "
+            "in a later PR")
     if config.nnet.name != "uvit_t2i":
         raise NotImplementedError(f"training nnet {config.nnet.name!r} comes with a later slice")
     if not config.nnet.get("enable_panoptic", True):

@@ -1,7 +1,7 @@
 """Carry the JAX package's parameters into the port's state dicts.
 
 Both directions of the weight story end in the reference's state-dict names
-(`libs/uvit_t2i.py`, `libs/autoencoder.py`), which are the port modules' own
+(`libs/uvit.py`, `libs/uvit_t2i.py`, `libs/autoencoder.py`), which are the port modules' own
 names.  Inputs are nested mappings of numpy arrays (a flax `params` tree after
 `jax.tree.map(np.asarray, ...)`); this module uses numpy only.
 
@@ -74,6 +74,36 @@ def _block(t, prefix, out):
     _linear(t["mlp"]["fc2"], f"{prefix}.mlp.fc2", out)
     if "skip_linear" in t:
         _linear(t["skip_linear"], f"{prefix}.skip_linear", out)
+
+
+def uvit_state_dict(params: Mapping, *, patch_size: int) -> Dict[str, np.ndarray]:
+    """JAX `UViT` params (scanned or unrolled) -> the port's state dict, key
+    for key the JAX package's `export_uvit`."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    _patch_embed(p["patch_embed"], "patch_embed.proj", out, patch_size)
+    if "time_embed" in p:
+        _linear(p["time_embed"]["fc1"], "time_embed.0", out)
+        _linear(p["time_embed"]["fc2"], "time_embed.2", out)
+    if "label_emb" in p:
+        out["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"])
+    out["pos_embed"] = np.asarray(p["pos_embed"])
+    if "in_blocks" in p:  # scanned
+        ins, outs = _unstack(p["in_blocks"]["block"]), _unstack(p["out_blocks"]["block"])
+    else:
+        n = len([k for k in p if k.startswith("in_blocks_")])
+        ins = [p[f"in_blocks_{i}"] for i in range(n)]
+        outs = [p[f"out_blocks_{i}"] for i in range(n)]
+    for i, t in enumerate(ins):
+        _block(t, f"in_blocks.{i}", out)
+    _block(p["mid_block"], "mid_block", out)
+    for i, t in enumerate(outs):
+        _block(t, f"out_blocks.{i}", out)
+    _norm(p["norm"], "norm", out)
+    _linear(p["decoder_pred"], "decoder_pred", out)
+    if "final_layer" in p:
+        _conv2d(p["final_layer"]["conv"], "final_layer", out)
+    return out
 
 
 def uvit_t2i_state_dict(params: Mapping, *, patch_size: int,
