@@ -2,8 +2,9 @@
 
 Each source `csrc/<name>.cu` exposes a plain C interface and is compiled on
 first use into `build/torch_kernels/lib<name>-<hash>.so` at the repository
-root (listed in `.gitignore`); the hash covers the source and the flags, so an
-edited source is rebuilt.  Nothing is compiled when a module is imported.
+root (listed in `.gitignore`); the hash covers the source, the shared
+headers `csrc/*.cuh` and the flags, so an edited source or header is
+rebuilt.  Nothing is compiled when a module is imported.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -37,242 +37,11 @@
 // zeros to the next multiple of 16 in shared memory (the TPU pads to 128
 // lanes), and padded output columns are not stored.
 //
-// Simple on purpose, like the packed-qkv kernel it shares its tile loop
-// with: single-buffered tiles loaded with plain 16-byte loads, V fragments
-// gathered with scalar shared-memory loads.
+// The tile loop is attention_fwd.cuh's, shared with the packed-qkv kernel of
+// fused_qkv_attention.cu: single-buffered tiles loaded with plain 16-byte
+// loads, V fragments gathered with scalar shared-memory loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-static_assert(kBlockM == kBlockN, "load_tile fills kBlockN rows for Q tiles too");
-static_assert(kBlockM == kWarps * 16, "one 16-row mma slice per warp");
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kBlockN x DP tile of one (batch, head)'s rows into shared memory; rows past
-// L and columns past D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long row_stride, int row0, int L, int D) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  constexpr int kStride = DP + 8;
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int col = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && col < D) {
-      v = __ldg(reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + col));
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + col) = v;
-  }
-}
-
-struct Strides {
-  long b, h, l;  // in elements
-};
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    fused_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                           Strides qs, Strides ks, Strides vs, int L, int H, int D,
-                           float scale_log2) {
-  constexpr int kStride = DP + 8;       // shared-memory row stride, padded against bank conflicts
-  constexpr int kChunksD = DP / 16;     // k-steps of Q K^T over the head dim
-  constexpr int kTilesN = kBlockN / 8;  // 8-key column tiles of S
-  constexpr int kTilesD = DP / 8;       // 8-wide column tiles of O
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * kStride;
-  __nv_bfloat16* sV = sK + kBlockN * kStride;
-  const unsigned short* sV16 = reinterpret_cast<const unsigned short*>(sV);
-
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;  // fragment row group
-  const int tig = lane & 3;   // thread in group
-  const int wr = warp * 16;   // this warp's first row in the tile
-
-  load_tile<DP>(sQ, qb, qs.l, q0, L, D);
-  __syncthreads();
-  uint32_t qf[kChunksD][4];
-#pragma unroll
-  for (int kc = 0; kc < kChunksD; ++kc) {
-    const __nv_bfloat16* p0 = sQ + (wr + gid) * kStride + kc * 16 + tig * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    qf[kc][0] = ld_pair(p0);
-    qf[kc][1] = ld_pair(p1);
-    qf[kc][2] = ld_pair(p0 + 8);
-    qf[kc][3] = ld_pair(p1 + 8);
-  }
-
-  float o[kTilesD][4];
-#pragma unroll
-  for (int dt = 0; dt < kTilesD; ++dt) {
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  }
-  // Rows gid and gid + 8 of the warp's slice: running max (log2 domain) and
-  // this thread's share of the running sum.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < L; k0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DP>(sK, kb, ks.l, k0, L, D);
-    load_tile<DP>(sV, vb, vs.l, k0, L, D);
-    __syncthreads();
-
-    float s[kTilesN][4];
-#pragma unroll
-    for (int nt = 0; nt < kTilesN; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kp = sK + (nt * 8 + gid) * kStride + tig * 2;
-#pragma unroll
-      for (int kc = 0; kc < kChunksD; ++kc) {
-        const uint32_t bf[2] = {ld_pair(kp + kc * 16), ld_pair(kp + kc * 16 + 8)};
-        mma_16816(s[nt], qf[kc], bf);
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kTilesN; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + tig * 2 + (e & 1);
-        const float sv = key < L ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = sv;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key k0 < L is valid in every tile, so the new max is finite.
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      corr[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kTilesN; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-    l_run[0] = l_run[0] * corr[0] + rs[0];
-    l_run[1] = l_run[1] * corr[1] + rs[1];
-#pragma unroll
-    for (int dt = 0; dt < kTilesD; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-
-    // O += P V: the S accumulator layout of key tiles (2j, 2j+1) is exactly
-    // the A-fragment layout of the 16-key chunk j.
-#pragma unroll
-    for (int j = 0; j < kBlockN / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int kr = j * 16 + tig * 2;
-#pragma unroll
-      for (int dt = 0; dt < kTilesD; ++dt) {
-        const int col = dt * 8 + gid;
-        const uint32_t bf[2] = {
-            (uint32_t)sV16[kr * kStride + col] | ((uint32_t)sV16[(kr + 1) * kStride + col] << 16),
-            (uint32_t)sV16[(kr + 8) * kStride + col] |
-                ((uint32_t)sV16[(kr + 9) * kStride + col] << 16)};
-        mma_16816(o[dt], pa, bf);
-      }
-    }
-  }
-
-  const int row0 = q0 + wr + gid;
-  const int row1 = row0 + 8;
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / l;
-  }
-  __nv_bfloat16* obase = out + ((long)b * H + h) * L * D;
-#pragma unroll
-  for (int dt = 0; dt < kTilesD; ++dt) {
-    const int col = dt * 8 + tig * 2;  // D % 8 == 0, so col < D implies col + 1 < D
-    if (col < D) {
-      if (row0 < L) {
-        *reinterpret_cast<uint32_t*>(obase + (long)row0 * D + col) =
-            pack_bf16(o[dt][0] * inv[0], o[dt][1] * inv[0]);
-      }
-      if (row1 < L) {
-        *reinterpret_cast<uint32_t*>(obase + (long)row1 * D + col) =
-            pack_bf16(o[dt][2] * inv[1], o[dt][3] * inv[1]);
-      }
-    }
-  }
-}
-
-template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strides qs,
-                   Strides ks, Strides vs, int B, int H, int L, int D, float scale,
-                   cudaStream_t stream) {
-  const int smem = (kBlockM + 2 * kBlockN) * (DP + 8) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(fused_attention_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBlockM - 1) / kBlockM, H, B);
-  fused_attention_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs, L, H,
-      D, scale * 1.4426950408889634f);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "attention_fwd.cuh"
 
 // Returns the CUDA error code of the launch (0 on success).  Launches on
 // `stream` and does not synchronise; `out` is allocated by the caller.
@@ -283,23 +52,10 @@ extern "C" int pdm_fused_attention(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_sh, long long k_sl,
                                    long long v_sb, long long v_sh, long long v_sl, int B, int H,
                                    int L, int D, float scale, int device, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || D < 8 || D > 128 || D % 8 != 0 || B > 65535 || H > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{(long)q_sb, (long)q_sh, (long)q_sl};
   const Strides ks{(long)k_sb, (long)k_sh, (long)k_sl};
   const Strides vs{(long)v_sb, (long)v_sh, (long)v_sl};
-  switch ((D + 15) / 16) {
-    case 1: return (int)launch<16>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 2: return (int)launch<32>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 3: return (int)launch<48>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 4: return (int)launch<64>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 5: return (int)launch<80>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 6: return (int)launch<96>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    case 7: return (int)launch<112>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-    default: return (int)launch<128>(q, k, v, out, qs, ks, vs, B, H, L, D, scale, s);
-  }
+  const Strides os{(long)H * L * D, (long)L * D, D};  // out is contiguous (B, H, L, D)
+  return launch_attention_fwd(q, k, v, out, nullptr, qs, ks, vs, os, B, H, L, D, scale, device,
+                              stream);
 }

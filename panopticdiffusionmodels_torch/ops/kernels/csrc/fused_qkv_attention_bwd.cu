@@ -54,10 +54,9 @@
 // tiles, plain 16-byte loads, B fragments that need a transpose gathered with
 // scalar shared-memory loads.  TMA, wgmma and pipelining are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -66,42 +65,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kBlock == kWarps * 16, "one 16-row mma slice per warp");
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kBlock x DP tile of one head's columns into shared memory (row stride
-// DP + 8); rows past L and columns past D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long row_stride, int row0, int L, int D) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kStride = DP + 8;
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int col = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && col < D) {
-      v = __ldg(reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + col));
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + col) = v;
-  }
-}
 
 // A fragments (m16 x k16 chunks over the head dim) of rows wr..wr+15 of a
 // shared-memory tile.
@@ -244,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
     sRow[threadIdx.x] = l2;
     sRow[kBlock + threadIdx.x] = acc;
   }
-  load_tile<DP>(sA, base + h * D, row_stride, q0, L, D);
-  load_tile<DP>(sB, gbase, C, q0, L, D);
+  load_tile<DP, kBlock, kThreads>(sA, base + h * D, row_stride, q0, L, D);
+  load_tile<DP, kBlock, kThreads>(sB, gbase, C, q0, L, D);
   __syncthreads();
 
   uint32_t qf[kChunksD][4], gf[kChunksD][4];
@@ -261,8 +224,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < L; k0 += kBlock) {
     __syncthreads();  // every warp is done with the previous tiles (and with Q / dO)
-    load_tile<DP>(sA, base + C + h * D, row_stride, k0, L, D);
-    load_tile<DP>(sB, base + 2 * C + h * D, row_stride, k0, L, D);
+    load_tile<DP, kBlock, kThreads>(sA, base + C + h * D, row_stride, k0, L, D);
+    load_tile<DP, kBlock, kThreads>(sB, base + 2 * C + h * D, row_stride, k0, L, D);
     __syncthreads();
 
     float s[kTilesN][4], dp[kTilesN][4];
@@ -313,8 +276,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tig = lane & 3;
   const int wr = warp * 16;
 
-  load_tile<DP>(sA, base + C + h * D, row_stride, k0, L, D);
-  load_tile<DP>(sB, base + 2 * C + h * D, row_stride, k0, L, D);
+  load_tile<DP, kBlock, kThreads>(sA, base + C + h * D, row_stride, k0, L, D);
+  load_tile<DP, kBlock, kThreads>(sB, base + 2 * C + h * D, row_stride, k0, L, D);
   __syncthreads();
   uint32_t kf[kChunksD][4], vf[kChunksD][4];
   load_a_frags<DP>(kf, sA, wr, gid, tig);
@@ -330,8 +293,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = 0; q0 < L; q0 += kBlock) {
     __syncthreads();  // every warp is done with the previous tiles (and with K / V)
-    load_tile<DP>(sA, base + h * D, row_stride, q0, L, D);
-    load_tile<DP>(sB, gbase, C, q0, L, D);
+    load_tile<DP, kBlock, kThreads>(sA, base + h * D, row_stride, q0, L, D);
+    load_tile<DP, kBlock, kThreads>(sB, gbase, C, q0, L, D);
     if (threadIdx.x < kBlock) {
       const int row = q0 + threadIdx.x;
       const bool in = row < L;

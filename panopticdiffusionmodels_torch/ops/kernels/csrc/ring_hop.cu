@@ -45,10 +45,9 @@
 // plain 16-byte loads, V fragments gathered with scalar shared-memory loads.
 // TMA, wgmma and a multi-stage pipeline are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -56,51 +55,12 @@ constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;  // keys per K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-static_assert(kBlockM == kBlockN, "load_tile fills kBlockN rows for Q tiles too");
 static_assert(kBlockM == kWarps * 16, "one 16-row mma slice per warp");
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;             // JAX's NEG_BIG, natural units
 constexpr float kNegBigLog2 = kNegBig * kLog2e;  // the same score in log2 units
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two consecutive bf16 at p (p 4-byte aligned) as one 32-bit register; the
-// lower-indexed element sits in the low half, as mma fragments expect.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows x DP tile of one head's columns into shared memory; rows past L and
-// columns past D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long row_stride, int row0, int L, int D) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  constexpr int kStride = DP + 8;
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int col = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L && col < D) {
-      v = __ldg(reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + col));
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + col) = v;
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -134,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tig = lane & 3;   // thread in group
   const int wr = warp * 16;   // this warp's first row in the tile
 
-  load_tile<DP>(sQ, q + (long)b * q_bs + h * D, q_rs, q0, Lq, D);
+  load_tile<DP, kBlockM, kThreads>(sQ, q + (long)b * q_bs + h * D, q_rs, q0, Lq, D);
   __syncthreads();
   uint32_t qf[kChunksD][4];
 #pragma unroll
@@ -159,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < Lk; k0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DP>(sK, kbase, kv_rs, k0, Lk, D);
-    load_tile<DP>(sV, vbase, kv_rs, k0, Lk, D);
+    load_tile<DP, kBlockN, kThreads>(sK, kbase, kv_rs, k0, Lk, D);
+    load_tile<DP, kBlockN, kThreads>(sV, vbase, kv_rs, k0, Lk, D);
     __syncthreads();
 
     float s[kTilesN][4];

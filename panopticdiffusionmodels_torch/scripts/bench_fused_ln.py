@@ -96,24 +96,24 @@ def chain(blocks: List[Dict[str, torch.Tensor]], x: torch.Tensor, variant: str,
     return x
 
 
-def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[int, dict]:
+def main(argv: Optional[List[str]] = None) -> Dict[int, dict]:
     """Both arms at each batch; returns {batch: {'<arm>_ms', 'rel', 'forwards'}},
     where `forwards` is the number of chain forwards each arm ran."""
     batches = [int(a) for a in (sys.argv[1:] if argv is None else argv)] or [32, 64]
-    blocks = load_weights(make_weights(0), device)
+    blocks = load_weights(make_weights(0))
     results = {}
     for b in batches:
         x = torch.as_tensor((0.5 * np.random.default_rng(1).standard_normal((b, L, C)))
-                            .astype(np.float32), device=device).to(torch.bfloat16)
+                            .astype(np.float32), device="cuda").to(torch.bfloat16)
         outs, row = {}, {"forwards": TIMED + 1}
         for variant in VARIANTS:
             outs[variant] = chain(blocks, x, variant)  # warm-up, and the compared output
             times = []
             for _ in range(TIMED):
-                torch.cuda.synchronize(device)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 chain(blocks, x, variant)
-                torch.cuda.synchronize(device)
+                torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             row[f"{variant}_ms"] = 1e3 * min(times)
             print(f"B={b} {variant:8s}: {row[f'{variant}_ms']:7.2f} ms/fwd")
