@@ -9,16 +9,22 @@ kernels.
 Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every hand-written kernel of the paths, from `csrc/`, with nvcc
-     (one process per source, all at once), with ptxas' register report;
+     (one process per source, all at once), with ptxas' registers, spills
+     and wgmma warnings per kernel, and the dynamic shared memory of the
+     wgmma attention loop and the LN-prologue GEMM;
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
-     and training shapes (relative deviation < 5e-3), with CUDA-event times
-     of the kernel, the plain version and `scaled_dot_product_attention` as
-     the yardstick; the forward with its lse output is bit-identical to the
-     forward without it and its lse is within 1e-4 relative of the plain one;
-     `attn_impl='infer'` on a CUDA tensor that needs a gradient raises;
+     and training shapes (relative deviation < 5e-3), each shape with the
+     loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
+     timed in turns with `scaled_dot_product_attention`, its yardstick
+     (library, kernel, kernel, library, 5 times: medians and spreads), and
+     beside the plain version; the forward with its lse output is
+     bit-identical to the forward without it and its lse is within 1e-4
+     relative of the plain one; `attn_impl='infer'` on a CUDA tensor that
+     needs a gradient raises;
      3b. the backward kernel vs `attention_qkv_vjp_plain` at the training
      shapes and U-ViT-L/2 / U-ViT-H (relative deviation of dqkv < 5e-3),
-     timed beside the plain version and SDPA's backward;
+     timed in turns with SDPA's backward, and both again with the L2 flushed
+     (64 MB) before every launch; beside the plain version;
      3c. the ring-hop kernel vs `attention_hop_plain` at the 512-res and
      256-res sp=2 shard shapes and the TPU verify shapes, nvalid = Lk,
      Lk - 64, 0 and a per-row mix, q a strided view of the packed qkv
@@ -27,17 +33,23 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      3d. the (B, H, L, D) kernel `fused_attention` vs `attention_plain` at
      U-ViT-L/2 (32, 16, 258, 64), the U-ViT-H and UNet head dims and one
      L > 1024, contiguous and as transposed views (relative deviation
-     < 5e-3), timed beside the plain version and SDPA; then
+     < 5e-3), each with its loop, timed in turns with SDPA and beside the
+     plain version; then
      `multi_head_attention(impl='pallas')` forward + backward at U-ViT-L/2,
      one kernel launch, gradient vs the all-plain one < 2e-2;
      3e. `fused_ln_qkv_attention` (LN-prologue qkv GEMM + attention) vs its
      plain version at the A/B chain's shapes, L = 1024 and a ragged small L
-     (relative deviation < 5e-3), timed beside the plain version and
-     F.layer_norm + torch.matmul + SDPA;
+     (relative deviation < 5e-3), timed in turns with F.layer_norm +
+     torch.matmul + SDPA and beside the plain version; its GEMM half
+     `ln_qkv_gemm` alone vs `ln_qkv_gemm_plain` (< 5e-3), timed in turns with
+     F.layer_norm + torch.matmul, beside its operations bound, with the
+     profiler's split of its device time between the statistics pass and
+     the GEMM;
      3f. the full-width A/B chain (20 U-ViT-L/2 blocks) through
      `scripts/bench_fused_ln.main` at B = 32 and 64: ms per forward of each
-     arm, fused vs shipped < 2e-2, exactly 20 kernel-5 launches per fused
-     forward and 20 kernel-1 launches per shipped forward;
+     arm, fused vs shipped < 2e-2, exactly 20 kernel-5 launches (and 20
+     `ln_qkv_gemm` calls) per fused forward and 20 kernel-1 launches per
+     shipped forward;
   4. the full-width UViTT2I forward (mscoco_uvit_small, B=8) with the kernel
      against the same weights with the plain attention (relative deviation
      < 2e-2 on noise and mask);
@@ -50,7 +62,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      images, < 5e-2 on the mask prediction); then it answers 3 requests of 4
      CLIP contexts at 50 steps
      through generate_batches; the kernel's launch counter must rise by
-     exactly 1300 per request (13 blocks x 2 streams x 50 NFE);
+     exactly 1300 per request (13 blocks x 2 streams x 50 NFE); the host
+     cost of kernel 1's per-launch tensor-map encode for one request;
   6. one more request under torch.profiler: device time by kernel and the
      device's busy share of the request;
      6b. ImageNet-256 serving: GenerationPipeline.from_config(
@@ -157,12 +170,13 @@ IMAGENET_LABELS, IMAGENET_LAUNCHES = 32, 21 * STEPS
 
 def zero_counts() -> None:
     fqa.launches = fqa.bwd_launches = ring_hop.launches = fa.launches = fl.launches = 0
+    fl.gemm_launches = 0
 
 
 def read_counts() -> dict:
     return {"fused_attention_qkv": fqa.launches, "fused_attention_qkv_vjp": fqa.bwd_launches,
             "attention_hop": ring_hop.launches, "fused_attention": fa.launches,
-            "fused_ln_qkv_attention": fl.launches}
+            "fused_ln_qkv_attention": fl.launches, "ln_qkv_gemm": fl.gemm_launches}
 
 
 def card_line() -> str:
@@ -184,9 +198,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def alternate(kernel, library, repeats: int = 5, iters: int = 20) -> dict:
+    """The kernel and its library call timed in turns (library, kernel,
+    kernel, library) `repeats` times, `cuda_ms` each: medians and (min, max)
+    spreads, so that the two share the card's state."""
+    ks, ls = [], []
+    for _ in range(repeats):
+        ls.append(cuda_ms(library, iters))
+        ks.append(cuda_ms(kernel, iters))
+        ks.append(cuda_ms(kernel, iters))
+        ls.append(cuda_ms(library, iters))
+    return dict(ms=float(np.median(ks)), ms_spread=[min(ks), max(ks)],
+                library_ms=float(np.median(ls)), library_ms_spread=[min(ls), max(ls)])
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of fn() with the 50 MB L2 flushed before each launch
+    (a 64 MB buffer zeroed between launches), CUDA events around each."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
 def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def fmt_spread(spread) -> str:
+    return f"[{spread[0]:.4f}-{spread[1]:.4f}]"
 
 
 def bound(nbytes: float, flops: float):
@@ -208,9 +257,15 @@ def phase_build():
     build.build_all(build.KERNELS)
     print(f"[2] built {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in build.BUILD_LOG.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line or "C75" in line:
+                print(f"    {name} [{kernel[:72]}]: {line.strip()}")
+    print(f"[2] dynamic shared memory a CTA: attention wgmma loop "
+          f"{fqa.attention_tma_smem_bytes()} B (2 CTAs an SM), LN-prologue GEMM "
+          f"{fl.gemm_smem_bytes()} B (1 CTA an SM)")
 
 
 def phase_kernel(gen):
@@ -229,18 +284,24 @@ def phase_kernel(gen):
         rel = rel_dev(out, ref)
         max_abs = float((out.float() - ref.float()).abs().max())
         q, k, v = qkv.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
         row = dict(
-            shape=[b, l, h, d], max_rel_dev=rel, max_abs_err=max_abs, lse_max_rel_dev=lse_rel,
-            ms=cuda_ms(lambda: fqa.fused_attention_qkv(qkv, h, scale)),
-            lse_ms=cuda_ms(lambda: fqa.fused_attention_qkv(qkv, h, scale, with_lse=True)),
-            plain_ms=cuda_ms(lambda: fqa.attention_qkv_plain(qkv, h, scale)),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+            shape=[b, l, h, d], loop=fqa.attention_loop(d), max_rel_dev=rel,
+            max_abs_err=max_abs, lse_max_rel_dev=lse_rel,
+            **alternate(lambda: fqa.fused_attention_qkv(qkv, h, scale), sdpa),
+            plain_ms=cuda_ms(lambda: fqa.attention_qkv_plain(qkv, h, scale)))
+        lse_times = alternate(lambda: fqa.fused_attention_qkv(qkv, h, scale, with_lse=True), sdpa)
+        row.update(lse_ms=lse_times["ms"], lse_ms_spread=lse_times["ms_spread"])
         row["bound_ms"], row["bound_by"] = bound((b * l * 3 * c + b * l * c) * 2,
                                                  4 * b * l * l * c)
-        print(f"[3] B{b} L{l} H{h} D{d}: rel {rel:.2e} max|err| {max_abs:.2e} lse rel "
-              f"{lse_rel:.1e} | kernel {row['ms']:.4f} ms (with lse {row['lse_ms']:.4f}), "
-              f"plain {row['plain_ms']:.4f} ms, sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        print(f"[3] B{b} L{l} H{h} D{d} ({row['loop']} loop): rel {rel:.2e} max|err| "
+              f"{max_abs:.2e} lse rel {lse_rel:.1e} | kernel {row['ms']:.4f} ms "
+              f"{fmt_spread(row['ms_spread'])} (with lse {row['lse_ms']:.4f} "
+              f"{fmt_spread(row['lse_ms_spread'])}), plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms {fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
+              f"{row['ms'] / row['library_ms']:.2f}, with lse "
+              f"{row['lse_ms'] / row['library_ms']:.2f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
         assert np.isfinite(rel) and rel < 5e-3, (b, l, h, d, rel)
         rows.append(row)
     # The forward-only kernel would drop the gradient: it must refuse.
@@ -275,16 +336,23 @@ def phase_backward(gen):
                    for t in qkv.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4))
         o = F.scaled_dot_product_attention(q, k, v, scale=scale)
         go = g.view(b, l, h, d).transpose(1, 2)
+        kernel = lambda: fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)  # noqa
+        library = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
         row = dict(
             shape=[b, l, h, d], max_rel_dev=rel, max_abs_err=max_abs,
-            ms=cuda_ms(lambda: fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)),
+            **alternate(kernel, library),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_vjp_plain(qkv, g, h, scale), iters=5),
-            library_ms=cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)))
+            cold_ms=cold_ms(kernel), library_cold_ms=cold_ms(library))
         # qkv + g read, dqkv written, bf16
         row["bound_ms"], row["bound_by"] = bound(14 * b * l * c, 10 * b * l * l * c)
         print(f"[3b] B{b} L{l} H{h} D{d}: dqkv rel {rel:.2e} max|err| {max_abs:.2e} | kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
+              f"ms, sdpa backward {row['library_ms']:.4f} ms "
+              f"{fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
+              f"{row['ms'] / row['library_ms']:.2f}); cold L2: kernel {row['cold_ms']:.4f} ms, "
+              f"sdpa backward {row['library_cold_ms']:.4f} ms (kernel/sdpa "
+              f"{row['cold_ms'] / row['library_cold_ms']:.2f}); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
         assert torch.isfinite(dqkv.float()).all() and np.isfinite(rel) and rel < 5e-3, \
             (b, l, h, d, rel)
         rows.append(row)
@@ -376,16 +444,19 @@ def phase_mha(gen):
         torch.cuda.synchronize()
         rels = {name: rel_dev(o, ref) for name, o in outs.items()}
         max_abs = max(float((o.float() - ref.float()).abs().max()) for o in outs.values())
-        row = dict(shape=[b, h, l, d], max_rel_dev=max(rels.values()), max_abs_err=max_abs,
-                   ms=cuda_ms(lambda: fa.fused_attention(q, k, v, scale)),
-                   plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, scale), iters=5),
-                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                             scale=scale)))
+        row = dict(shape=[b, h, l, d], loop=fqa.attention_loop(d, fa.NAME),
+                   max_rel_dev=max(rels.values()), max_abs_err=max_abs,
+                   **alternate(lambda: fa.fused_attention(q, k, v, scale),
+                               lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                   plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, scale), iters=5))
         row["bound_ms"], row["bound_by"] = bound(8 * b * h * l * d, 4 * b * h * l * l * d)
-        print(f"[3d] B{b} H{h} L{l} D{d}: rel contiguous {rels['contiguous']:.2e} strided "
-              f"{rels['strided']:.2e} max|err| {max_abs:.2e} | kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        print(f"[3d] B{b} H{h} L{l} D{d} ({row['loop']} loop): rel contiguous "
+              f"{rels['contiguous']:.2e} strided {rels['strided']:.2e} max|err| {max_abs:.2e} | "
+              f"kernel {row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+              f"{fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
+              f"{row['ms'] / row['library_ms']:.2f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
         assert all(torch.isfinite(o.float()).all() for o in outs.values()), (b, h, l, d)
         assert max(rels.values()) < 5e-3, (b, h, l, d, rels)
         rows.append(row)
@@ -414,11 +485,36 @@ def phase_mha(gen):
     return rows, launches
 
 
+def gemm_device_split(x2d, gamma, beta, w, calls: int = 10) -> dict:
+    """Device ms a call of the two kernels of `ln_qkv_gemm`, from
+    torch.profiler over `calls` calls (the statistics pass alone is too short
+    for host-clocked CUDA events: the wrapper's host time hides it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fl.ln_qkv_gemm(x2d, gamma, beta, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fl.ln_qkv_gemm(x2d, gamma, beta, w)
+        torch.cuda.synchronize()
+    split = {"stats": 0.0, "gemm": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for key, name in (("stats", "ln_row_stats_kernel"), ("gemm", "ln_qkv_gemm_kernel")):
+                if name in e.key:
+                    split[key] += e.self_device_time_total / 1e3 / calls
+    return split
+
+
 def phase_ln_qkv(gen):
     """Kernel 5, `fused_ln_qkv_attention`, against its plain version in bf16
     (relative deviation < 5e-3) at the chain's two batches, L = 1024 and a
-    ragged small L; timed beside the plain version and the three library
-    calls F.layer_norm + torch.matmul + SDPA on the same inputs."""
+    ragged small L; timed in turns with the three library calls
+    F.layer_norm + torch.matmul + SDPA on the same inputs, and beside the
+    plain version.  Then its GEMM half alone, `ln_qkv_gemm` (the statistics
+    and GEMM kernels), against `ln_qkv_gemm_plain` (< 5e-3) and timed in
+    turns with F.layer_norm + torch.matmul, beside its operations bound
+    2*M*C*3C; the profiler splits its device time between the two kernels."""
     rows = []
     for b, l, c, h in LN_SHAPES:
         x = (torch.randn((b, l, c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
@@ -428,27 +524,53 @@ def phase_ln_qkv(gen):
         scale = (c // h) ** -0.5
         out = fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale)
         ref = fl.fused_ln_qkv_attention_plain(x, gamma, beta, w, h, scale)
+        x2d = x.view(b * l, c)
+        qkv = fl.ln_qkv_gemm(x2d, gamma, beta, w)
+        qkv_ref = fl.ln_qkv_gemm_plain(x2d, gamma, beta, w)
         torch.cuda.synchronize()
         rel = rel_dev(out, ref)
         max_abs = float((out.float() - ref.float()).abs().max())
+        gemm_rel = rel_dev(qkv, qkv_ref)
+
+        def ln_matmul():
+            return torch.matmul(F.layer_norm(x.float(), (c,), gamma, beta, 1e-5).to(
+                torch.bfloat16), w)
 
         def library():
-            xn = F.layer_norm(x.float(), (c,), gamma, beta, 1e-5).to(torch.bfloat16)
-            q, k, v = torch.matmul(xn, w).view(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
+            q, k, v = ln_matmul().view(b, l, 3, h, c // h).permute(2, 0, 3, 1, 4)
             return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
         row = dict(shape=[b, l, c, h], max_rel_dev=rel, max_abs_err=max_abs,
-                   ms=cuda_ms(lambda: fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale)),
+                   **alternate(lambda: fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale),
+                               library),
                    plain_ms=cuda_ms(lambda: fl.fused_ln_qkv_attention_plain(
                        x, gamma, beta, w, h, scale), iters=5),
-                   library_ms=cuda_ms(library),
                    library="F.layer_norm + torch.matmul + scaled_dot_product_attention")
         row["bound_ms"], row["bound_by"] = bound(
             2 * (2 * b * l * c + 3 * c * c) + 8 * c, 2 * b * l * c * 3 * c + 4 * b * l * l * c)
+        gemm = dict(max_rel_dev=gemm_rel,
+                    **alternate(lambda: fl.ln_qkv_gemm(x2d, gamma, beta, w), ln_matmul),
+                    library="F.layer_norm + torch.matmul", **gemm_device_split(x2d, gamma, beta, w))
+        gemm["bound_ms"], gemm["bound_by"] = bound(
+            2 * (b * l * c + 3 * c * c + 3 * b * l * c) + 8 * c, 2 * b * l * c * 3 * c)
+        gemm["tflops"] = 2 * b * l * c * 3 * c / gemm["gemm"] / 1e9
+        gemm["stats_share"] = gemm["stats"] / (gemm["stats"] + gemm["gemm"])
+        row["gemm_half"] = gemm
         print(f"[3e] B{b} L{l} C{c} H{h}: rel {rel:.2e} max|err| {max_abs:.2e} | kernels "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, layer_norm+matmul+sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
+              f"ms, layer_norm+matmul+sdpa {row['library_ms']:.4f} ms "
+              f"{fmt_spread(row['library_ms_spread'])} (kernels/library "
+              f"{row['ms'] / row['library_ms']:.2f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        print(f"[3e]   GEMM half ln_qkv_gemm: rel {gemm_rel:.2e} | {gemm['ms']:.4f} ms "
+              f"{fmt_spread(gemm['ms_spread'])}, layer_norm+matmul {gemm['library_ms']:.4f} ms "
+              f"{fmt_spread(gemm['library_ms_spread'])} (ratio "
+              f"{gemm['ms'] / gemm['library_ms']:.2f}), bound {gemm['bound_ms']:.4f} ms "
+              f"({gemm['bound_by']}); device: statistics {gemm['stats']:.4f} ms + GEMM "
+              f"{gemm['gemm']:.4f} ms ({gemm['tflops']:.0f} TFLOP/s), statistics "
+              f"{gemm['stats_share']:.1%} of the two")
         assert torch.isfinite(out.float()).all() and rel < 5e-3, (b, l, c, h, rel)
+        assert torch.isfinite(qkv.float()).all() and gemm_rel < 5e-3, (b, l, c, h, gemm_rel)
         rows.append(row)
     return rows
 
@@ -464,6 +586,7 @@ def phase_chain():
     counts = read_counts()
     forwards = sum(r["forwards"] for r in results.values())
     want = {"fused_ln_qkv_attention": bench_fused_ln.DEPTH * forwards,
+            "ln_qkv_gemm": bench_fused_ln.DEPTH * forwards,
             "fused_attention_qkv": bench_fused_ln.DEPTH * forwards}
     assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
     for b, r in results.items():
@@ -593,9 +716,18 @@ def phase_serving():
     t1 = time.perf_counter()
     pipe.generate(contexts=batches[0]["contexts"], steps=STEPS, seed=1)
     latency = time.perf_counter() - t1
+    # Host cost of the wgmma loop's per-launch tensor-map encode at the
+    # request's two shapes (650 launches each).
+    encode = [fqa.encode_us(torch.empty((b, l, 3 * h * d), dtype=torch.bfloat16, device="cuda"),
+                            h) for b, l, h, d in MAIN_PATH_SHAPES]
+    encode_ms = sum(encode) * LAUNCHES_PER_REQUEST / 2 / 1e3
+    print(f"[5] tensor-map encode: {encode[0]:.3f} / {encode[1]:.3f} us a launch at L = "
+          f"{MAIN_PATH_SHAPES[0][1]} / {MAIN_PATH_SHAPES[1][1]}, {encode_ms:.3f} ms a request "
+          f"({encode_ms / (latency * 1e3):.2%} of its {latency * 1e3:.1f} ms)")
     result = dict(requests=REQUESTS, images_per_request=PER_REQUEST, steps=STEPS,
                   launches=launches, total_s=total, per_request_s=total / REQUESTS,
                   yields_s=done, single_request_latency_s=latency,
+                  tensor_map_encode_ms_per_request=encode_ms,
                   images_per_s=REQUESTS * PER_REQUEST / total)
     print(f"[5] serving: {json.dumps(result)}")
     return pipe, batches[0]["contexts"], launches, latency
@@ -920,6 +1052,7 @@ def main() -> int:
             "GEMM launch plus the packed-qkv attention launch (fused_qkv_attention.cu); "
             "library_ms is F.layer_norm + torch.matmul + scaled_dot_product_attention, "
             "three calls",
+        gemm_half=ln_main["gemm_half"],
         chain={str(b): r for b, r in chain.items()},
         shapes=ln_rows)
     print(card_line())

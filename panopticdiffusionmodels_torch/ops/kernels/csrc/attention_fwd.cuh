@@ -1,41 +1,74 @@
-// The attention forward tile loop shared by the packed-qkv kernel
-// (fused_qkv_attention.cu) and the (B, H, L, D) kernel (fused_attention.cu).
-// The two differ only in where q, k, v and out live, which each source
-// states as (batch, head, row) strides; see those sources for what bounds
-// the kernel and what its design does about it.
+// The attention forward shared by the packed-qkv kernel
+// (fused_qkv_attention.cu, kernel 1) and the (B, H, L, D) kernel
+// (fused_attention.cu, kernel 4).  The two differ only in where q, k, v and
+// out live, which each source states at its C entry: as TMA tensor maps plus
+// (batch, head, row) strides of out for the wgmma loop, and as (batch, head,
+// row) strides of all four for the mma.sync loop.
 //
 // Per (batch, head): out = softmax(q k^T * scale) v, with q, k, v and out
 // bf16 and unit stride along the head dim D; lse (B, H, L) f32, contiguous,
 // optional (null skips it): each row's natural-log log-sum-exp of the scaled
-// scores, ln(sum_j exp(q.k_j * scale)).
+// scores, ln(sum_j exp(q.k_j * scale)), which kernel 2 reads.
 //
-// One CTA owns a 64-row query tile of one (batch, head), keeps its Q
-// fragments in registers, streams 64-key K/V tiles through shared memory and
-// keeps the running max, the running sum and the (64, D) accumulator in
-// registers (online softmax), so the (L, L) scores never reach device
-// memory.  Products run on the tensor cores through mma.sync m16n8k16 (bf16
-// in, f32 accumulate).
+// What bounds it on an H100: 4*L^2*D flops against 8*L*D bytes per (batch,
+// head), L/2 flops per byte, below the card's ~295 flop/byte bf16 ridge for
+// every L the port runs (258, 334, 590), so the floor is reading q, k, v once
+// and writing out once; the (L, L) scores never reach device memory (online
+// softmax).  Reaching that floor takes overlap: a loop that copies a K/V
+// tile through registers between two __syncthreads and then computes leaves
+// the memory system and the tensor cores idle in turn.
 //
-// Numerics: scores, running max/sum and accumulation are f32; P is rounded to
-// bf16 for the PV product, before its normalisation, which is deferred to the
-// epilogue (the division by the row sum, flash style).
+// The wgmma loop (head dim 64: every main path of the port):
+//   - one CTA owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows and one producer warp;
+//   - the producer loads each warpgroup's 64 x 64 Q tile once and then fills
+//     a 3-stage ring of 64-key K and V tiles with TMA, each stage signalled
+//     by a `full` mbarrier (TMA byte count) and released by an `empty`
+//     mbarrier (one arrival per consumer warp), so the next tiles are in
+//     flight while the consumers compute;
+//   - S = Q K^T is wgmma m64n64k16 with both operands in shared memory
+//     (K-major, 128-byte swizzle as TMA wrote them);
+//   - the online softmax runs on the accumulator in registers, log2 domain;
+//     keys >= L score -inf;
+//   - P is rounded to bf16 in registers and is the register A operand of
+//     O += P V (wgmma m64n64k16), V read from shared memory as an MN-major B
+//     through the transpose bit;
+//   - the division by the row sum is deferred to the epilogue, which stores
+//     out (and lse) straight from the accumulator.
+//   Two CTAs fit on an SM (65 KB of shared memory each, <= 113 registers a
+//   thread), so four consumer warpgroups share the tensor cores.
+//   Ragged L: TMA zero-fills rows past L (per batch: the packed map is 3-D,
+//   (3C, L, B), kernel 4's 4-D, (D, L, H, B)), keys >= L score -inf and rows
+//   >= L are not stored.  A warpgroup whose 64 rows all lie past L exits at
+//   once and the `empty` barriers count only the live ones, so L = 258 runs 3
+//   CTAs of (128, 128, 64) live rows, not 384: 320 rows against 258 useful,
+//   and 5 key tiles (320 keys).
 //
-// Shapes: any L >= 1 (keys >= L score -inf, query rows >= L are not stored)
-// and any D that is a multiple of 8 up to 128; D is padded with zeros to the
-// next multiple of 16 in shared memory, and padded output columns are not
-// stored.
+// Static dispatch on D: D = 64 takes the wgmma loop; every other D (a
+// multiple of 8 up to 128: 72 for U-ViT-H, 40 for the UNet) keeps the
+// mma.sync loop below (64-row CTAs of 4 warps, 64-key tiles loaded through
+// registers, D zero-padded to a multiple of 16 in shared memory).  A 144-byte
+// row does not fit the 128-byte swizzle.  pdm_attention_path(D) reports the
+// choice.
 //
-// Simple on purpose: single-buffered tiles loaded with plain 16-byte loads,
-// V fragments gathered with scalar shared-memory loads.  TMA, wgmma and a
-// multi-stage pipeline are later work.
+// Numerics (both loops): scores, running max/sum and accumulation are f32; P
+// is rounded to bf16 for the PV product, before its normalisation.
 
 #pragma once
 
 #include <math.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
+
+struct Strides {
+  long b, h, l;  // (batch, head, row) strides in elements
+};
+
+
+// ---- the mma.sync loop: every head dim but 64 ----
 
 constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;  // keys per K/V tile
@@ -44,13 +77,9 @@ constexpr int kThreads = kWarps * 32;
 static_assert(kBlockM == kBlockN, "Q tiles are loaded as kBlockN-row tiles");
 static_assert(kBlockM == kWarps * 16, "one 16-row mma slice per warp");
 
-struct Strides {
-  long b, h, l;  // (batch, head, row) strides in elements
-};
-
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+    attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
@@ -215,32 +244,244 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int DP>
-cudaError_t launch_attention_fwd_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
+cudaError_t launch_attention_mma_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
                                     Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
                                     int L, int D, float scale, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * kBlockN) * (DP + 8) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlockM - 1) / kBlockM, H, B);
-  attention_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  attention_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, lse, qs, ks, vs, os, L, H, D, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// Launches on `device`'s `stream` and does not synchronise; returns the CUDA
-// error code of the launch (0 on success).  Every stride and base pointer
-// must keep rows 16-byte aligned (out's 4-byte aligned).
-inline int launch_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                float* lse, Strides qs, Strides ks, Strides vs, Strides os,
-                                int B, int H, int L, int D, float scale, int device,
-                                void* stream) {
-  if (B < 1 || H < 1 || L < 1 || D < 8 || D > 128 || D % 8 != 0 || B > 65535 || H > 65535) {
-    return (int)cudaErrorInvalidValue;
+// ---- the wgmma loop: head dim 64 ----
+
+constexpr int kTmaRows = 64;       // rows of a consumer warpgroup, keys of a K/V tile
+constexpr int kTmaConsumers = 2;   // consumer warpgroups: 128 query rows per CTA
+constexpr int kTmaStages = 3;      // K/V ring depth
+constexpr int kTmaThreads = kTmaConsumers * 128 + 32;  // + one producer warp
+constexpr int kTmaTile = kTmaRows * 64;                // elements of one 64 x 64 tile (8 KB)
+constexpr int kTmaTileBytes = kTmaTile * 2;
+constexpr int kTmaSmem = (kTmaConsumers + 2 * kTmaStages) * kTmaTileBytes + 1024 + 128;
+
+inline bool attention_uses_tma(int D) { return D == 64; }
+
+// One 64 x 64 tile: kRank 3 is kernel 1's packed (3C, L, B) map, whose
+// columns for head h start at col0 + 64 h; kRank 4 is kernel 4's (D, L, H, B).
+template <int kRank>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col0, int row, int h, int b) {
+  if constexpr (kRank == 3) {
+    tma_load_3d(dst, map, bar, col0 + h * 64, row, b);
+  } else {
+    tma_load_4d(dst, map, bar, 0, row, h, b);
   }
-  cudaError_t err = cudaSetDevice(device);
+}
+
+template <int kRank>
+__global__ void __launch_bounds__(kTmaThreads, 2)
+    attention_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, int3 col0,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Strides os,
+                         int L, int H, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* sK = sQ + kTmaConsumers * kTmaTile;
+  __nv_bfloat16* sV = sK + kTmaStages * kTmaTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kTmaStages * kTmaTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kTmaStages;
+
+  const int q0 = blockIdx.x * (kTmaConsumers * kTmaRows);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int live = min(kTmaConsumers, (L - q0 + kTmaRows - 1) / kTmaRows);
+  const int n_tiles = (L + kTmaRows - 1) / kTmaRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kTmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * live);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kTmaConsumers) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_full, live * kTmaTileBytes);
+      for (int w = 0; w < live; ++w) {
+        tma_tile<kRank>(sQ + w * kTmaTile, &map_q, q_full, col0.x, q0 + w * kTmaRows, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kTmaStages;
+        mbar_wait(&empty[s], ((j / kTmaStages) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(&full[s], 2 * kTmaTileBytes);
+        tma_tile<kRank>(sK + s * kTmaTile, &map_k, &full[s], col0.y, j * kTmaRows, h, b);
+        tma_tile<kRank>(sV + s * kTmaTile, &map_v, &full[s], col0.z, j * kTmaRows, h, b);
+      }
+    }
+    return;
+  }
+  if (wg >= live) return;  // every row of this warpgroup is >= L
+
+  const int wl = warp & 3;    // warp in the warpgroup: rows 16 wl .. 16 wl + 15
+  const int gid = lane >> 2;  // accumulator row group
+  const int tig = lane & 3;   // thread in group
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // Rows gid and gid + 8 of the warp's slice: running max (log2 domain) and
+  // this thread's share of the running sum.
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  const uint64_t desc_q = sw128_desc(smem_u32(sQ + wg * kTmaTile), 16, 1024);
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kTmaStages;
+    const uint64_t desc_k = sw128_desc(smem_u32(sK + s * kTmaTile), 16, 1024);
+    const uint64_t desc_v = sw128_desc(smem_u32(sV + s * kTmaTile), 16, 1024);
+    mbar_wait(&full[s], (j / kTmaStages) & 1);
+
+    // S = Q K^T over D = 64: four k16 steps, 32 bytes apart in each 128-byte row.
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = j * kTmaRows + (i >> 2) * 8 + tig * 2 + (i & 1);
+      const float sv = key < L ? sc[i] * scale_log2 : -INFINITY;
+      sc[i] = sv;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sv);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key j * 64 < L is valid in every tile, so the new max is finite.
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      corr[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = exp2f(sc[i] - m_run[r]);
+      sc[i] = p;
+      rs[r] += p;
+    }
+    l_run[0] = l_run[0] * corr[0] + rs[0];
+    l_run[1] = l_run[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: the accumulator of keys 16 kk .. 16 kk + 15 (registers
+    // 8 kk .. 8 kk + 7) is exactly the register A fragment of k step kk.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    }
+    reg_fence(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // 16 keys = 16 rows of 128 bytes further into the V tile
+      wgmma_m64n64k16_rs_tnsp_b(o, pa[kk], desc_v + ((kk * 16 * 128) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+
+  const int row0 = q0 + wg * kTmaRows + wl * 16 + gid;
+  const int row1 = row0 + 8;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+    const int row = r ? row1 : row0;
+    if (lse != nullptr && tig == 0 && row < L) {
+      lse[((long)b * H + h) * L + row] = (m_run[r] + log2f(l)) * 0.6931471805599453f;
+    }
+  }
+  __nv_bfloat16* obase = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = dt * 8 + tig * 2;
+    if (row0 < L) {
+      *reinterpret_cast<uint32_t*>(obase + row0 * os.l + col) =
+          pack_bf16(o[4 * dt] * inv[0], o[4 * dt + 1] * inv[0]);
+    }
+    if (row1 < L) {
+      *reinterpret_cast<uint32_t*>(obase + row1 * os.l + col) =
+          pack_bf16(o[4 * dt + 2] * inv[1], o[4 * dt + 3] * inv[1]);
+    }
+  }
+}
+
+// ---- launches (on `stream`, no synchronisation; CUDA error code, 0 on success) ----
+
+// The arguments both loops take; sets the device.
+inline cudaError_t check_attention_args(int B, int H, int L, int D, int device) {
+  if (B < 1 || H < 1 || L < 1 || D < 8 || D > 128 || D % 8 != 0 || B > 65535 || H > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSetDevice(device);
+}
+
+// The wgmma loop over three 64 x 64-box maps (kRank 3: col0 holds the
+// column offsets of q, k and v in the packed map).
+template <int kRank>
+int launch_attention_tma(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                         const CUtensorMap& map_v, int3 col0, void* out, float* lse, Strides os,
+                         int B, int H, int L, float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tma_kernel<kRank>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem);
   if (err != cudaSuccess) return (int)err;
+  const int rows = kTmaConsumers * kTmaRows;
+  const dim3 grid((L + rows - 1) / rows, H, B);
+  attention_tma_kernel<kRank><<<grid, kTmaThreads, kTmaSmem, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, col0, static_cast<__nv_bfloat16*>(out), lse, os, L, H,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// The mma.sync loop.  Every stride and base pointer must keep rows 16-byte
+// aligned (out's 4-byte aligned).
+inline int launch_attention_mma(const void* q, const void* k, const void* v, void* out,
+                                float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+                                int B, int H, int L, int D, float scale, void* stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
@@ -249,17 +490,23 @@ inline int launch_attention_fwd(const void* q, const void* k, const void* v, voi
                     __nv_bfloat16*, float*, Strides, Strides, Strides, Strides, int, int, int,
                     int, float, cudaStream_t);
   switch ((D + 15) / 16) {
-    case 1: fn = launch_attention_fwd_dp<16>; break;
-    case 2: fn = launch_attention_fwd_dp<32>; break;
-    case 3: fn = launch_attention_fwd_dp<48>; break;
-    case 4: fn = launch_attention_fwd_dp<64>; break;
-    case 5: fn = launch_attention_fwd_dp<80>; break;
-    case 6: fn = launch_attention_fwd_dp<96>; break;
-    case 7: fn = launch_attention_fwd_dp<112>; break;
-    default: fn = launch_attention_fwd_dp<128>; break;
+    case 1: fn = launch_attention_mma_dp<16>; break;
+    case 2: fn = launch_attention_mma_dp<32>; break;
+    case 3: fn = launch_attention_mma_dp<48>; break;
+    case 4: fn = launch_attention_mma_dp<64>; break;
+    case 5: fn = launch_attention_mma_dp<80>; break;
+    case 6: fn = launch_attention_mma_dp<96>; break;
+    case 7: fn = launch_attention_mma_dp<112>; break;
+    default: fn = launch_attention_mma_dp<128>; break;
   }
   return (int)fn(qp, kp, vp, op, lse, qs, ks, vs, os, B, H, L, D, scale,
                  static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
+
+// 1 if head dim D takes the wgmma + TMA loop, 0 if the mma.sync loop; the
+// wgmma loop's dynamic shared memory per CTA in bytes.  Exported by both
+// sources that include this header.
+extern "C" int pdm_attention_path(int D) { return attention_uses_tma(D) ? 1 : 0; }
+extern "C" int pdm_attention_tma_smem_bytes() { return kTmaSmem; }

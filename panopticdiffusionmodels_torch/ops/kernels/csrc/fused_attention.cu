@@ -15,15 +15,20 @@
 // (L = 258) that is far below the card's ~295 flop/byte bf16 ridge, so the
 // floor is the traffic of the four tensors (20 us at (32, 16, 258, 64)).
 // The TPU kernel holds a whole (L, L) f32 score block per (batch, head) in
-// VMEM; a Hopper block has 227 KB of shared memory and must leave room for
-// several blocks per SM, so this design streams instead: one CTA owns a
-// 64-row query tile of one (batch, head), keeps its Q fragments in
-// registers, walks 64-key K/V tiles through shared memory and keeps the
-// running max, the running sum and the (64, D) accumulator in registers
-// (online softmax).  The (L, L) scores never reach device memory, and one
-// path serves every L: the TPU function's switch to XLA past MAX_FULL_SEQ
-// = 1024 is not needed.  Products run on the tensor cores through mma.sync
-// m16n8k16 (bf16 in, f32 accumulate).
+// VMEM; a Hopper block has 227 KB of shared memory, so this design streams
+// K/V tiles with an online softmax (attention_fwd.cuh, the loop shared with
+// kernel 1; see it for the design).  One path serves every L: the TPU
+// function's switch to XLA past MAX_FULL_SEQ = 1024 is not needed.
+//
+// Layout at this entry:
+//   - head dim 64 (the wgmma loop): one TMA tensor map per input, 4-D
+//     (D, L, H, B) with the view's own byte strides (row, head, batch) and
+//     64 x 64 x 1 x 1 boxes in the 128-byte swizzle, so rows past L zero-fill
+//     per (batch, head); TMA needs the base and every stride 16-byte aligned
+//     and unit stride along D, which the wrapper checks (tensor_map.py).
+//   - other head dims (the mma.sync loop): q, k and v as (batch, head, row)
+//     strides in elements.
+//   - out (B, H, L, D) contiguous, as strides (H*L*D, L*D, D) in both.
 //
 // Numerics: the TPU kernel casts q, k and v up to f32 and keeps P in f32 for
 // the PV product.  Here the scores, the running max and sum and the
@@ -32,16 +37,23 @@
 // division by the row sum, flash style).  The two differ by that rounding
 // (a few 1e-3 relative on the output).
 //
-// Shapes: any L >= 1 (keys >= L score -inf, query rows >= L are not stored)
-// and any head dim D that is a multiple of 8 up to 128; D is padded with
-// zeros to the next multiple of 16 in shared memory (the TPU pads to 128
-// lanes), and padded output columns are not stored.
-//
-// The tile loop is attention_fwd.cuh's, shared with the packed-qkv kernel of
-// fused_qkv_attention.cu: single-buffered tiles loaded with plain 16-byte
-// loads, V fragments gathered with scalar shared-memory loads.
+// Shapes: any L >= 1 and any head dim D that is a multiple of 8 up to 128
+// (the TPU pads to 128 lanes).
 
 #include "attention_fwd.cuh"
+
+namespace {
+
+// The (D, L, H, B) map of one input with (batch, head, row) strides in elements.
+cudaError_t encode_bhld(CUtensorMap* map, const void* t, long long sb, long long sh,
+                        long long sl, int B, int H, int L, int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return encode_bf16_map(map, 4, t, dims, strides, box);
+}
+
+}  // namespace
 
 // Returns the CUDA error code of the launch (0 on success).  Launches on
 // `stream` and does not synchronise; `out` is allocated by the caller.
@@ -52,10 +64,21 @@ extern "C" int pdm_fused_attention(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_sh, long long k_sl,
                                    long long v_sb, long long v_sh, long long v_sl, int B, int H,
                                    int L, int D, float scale, int device, void* stream) {
+  cudaError_t err = check_attention_args(B, H, L, D, device);
+  if (err != cudaSuccess) return (int)err;
+  const Strides os{(long)H * L * D, (long)L * D, D};  // out is contiguous (B, H, L, D)
+  if (attention_uses_tma(D)) {
+    CUtensorMap mq, mk, mv;
+    if ((err = encode_bhld(&mq, q, q_sb, q_sh, q_sl, B, H, L, D)) != cudaSuccess ||
+        (err = encode_bhld(&mk, k, k_sb, k_sh, k_sl, B, H, L, D)) != cudaSuccess ||
+        (err = encode_bhld(&mv, v, v_sb, v_sh, v_sl, B, H, L, D)) != cudaSuccess) {
+      return (int)err;
+    }
+    return launch_attention_tma<4>(mq, mk, mv, make_int3(0, 0, 0), out, nullptr, os, B, H, L,
+                                   scale, stream);
+  }
   const Strides qs{(long)q_sb, (long)q_sh, (long)q_sl};
   const Strides ks{(long)k_sb, (long)k_sh, (long)k_sl};
   const Strides vs{(long)v_sb, (long)v_sh, (long)v_sl};
-  const Strides os{(long)H * L * D, (long)L * D, D};  // out is contiguous (B, H, L, D)
-  return launch_attention_fwd(q, k, v, out, nullptr, qs, ks, vs, os, B, H, L, D, scale, device,
-                              stream);
+  return launch_attention_mma(q, k, v, out, nullptr, qs, ks, vs, os, B, H, L, D, scale, stream);
 }

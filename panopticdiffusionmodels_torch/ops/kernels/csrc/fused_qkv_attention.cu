@@ -13,16 +13,24 @@
 // the packed tensor (row stride 3C, column offsets h*D, C + h*D, 2C + h*D), so
 // neither side needs a transpose.
 //
-// What bounds it on an H100: at the U-ViT shapes (L = 334 / 590, D = 64) the
-// two products are 4*B*L^2*C flops against 8*B*L*C bytes in and out, i.e.
-// L/2 flops per byte: below the card's ~295 flop/byte ridge for L < 590, so
-// the floor is the memory traffic of reading qkv once and writing out once,
-// and at L = 590 both floors meet.  The design therefore never writes the
-// (L, L) scores to device memory: one CTA owns a 64-row query tile of one
-// (batch, head), keeps its Q fragments in registers, streams 64-key K/V
-// tiles through shared memory, and keeps the running max, running sum and
-// the (64, D) accumulator in registers (online softmax).  Products run on the
-// tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// What bounds it on an H100: at the U-ViT shapes (L = 258 / 334 / 590,
+// D = 64) the two products are 4*B*L^2*C flops against 8*B*L*C bytes in and
+// out, i.e. L/2 flops per byte: below the card's ~295 flop/byte ridge for
+// L < 590, so the floor is the memory traffic of reading qkv once and writing
+// out once, and at L = 590 both floors meet.  The (L, L) scores never reach
+// device memory (online softmax).
+//
+// The loop is attention_fwd.cuh's, shared with the (B, H, L, D) kernel of
+// fused_attention.cu; see it for the design.  Layout at this entry:
+//   - head dim 64 (the wgmma loop): one TMA tensor map over the packed qkv,
+//     3-D (3C, L, B) with byte strides (3C * 2, L * 3C * 2) and 64 x 64 boxes
+//     in the 128-byte swizzle, so rows past L zero-fill per batch and are
+//     never read from the next batch; q, k and v of head h are the boxes at
+//     columns h*D, C + h*D and 2C + h*D.  The map is encoded on the host at
+//     every call (pdm_fused_qkv_attention_encode_us times it).
+//   - other head dims (the mma.sync loop): q, k and v as (batch, head, row)
+//     strides (L*3C, D, 3C) from the same base offset by 0, C and 2C.
+//   - out (B, L, C) as strides (L*C, D, C) in both.
 //
 // Numerics: scores, running max/sum and accumulation are f32; P is rounded to
 // bf16 for the PV product.  The TPU kernel normalises P by its row sum BEFORE
@@ -30,26 +38,59 @@
 // the epilogue, as flash attention does, so P is rounded to bf16 before
 // normalisation.  The two differ by bf16 rounding only.
 //
-// Shapes: any L >= 1 (the ragged last tile is masked: keys >= L get -inf,
-// query rows >= L are not stored) and any head dim D that is a multiple of 8
-// up to 128; D is padded with zeros to the next multiple of 16 in shared
-// memory, and padded output columns are not stored.  The TPU kernel's
-// MAX_FULL_SEQ / Q_CHUNK split, head groups and VMEM budget do not apply.
-//
-// The tile loop is attention_fwd.cuh's, shared with the (B, H, L, D) kernel
-// of fused_attention.cu; this source states the packed layout as strides.
+// Shapes: any L >= 1 and any head dim D that is a multiple of 8 up to 128.
+// The TPU kernel's MAX_FULL_SEQ / Q_CHUNK split, head groups and VMEM budget
+// do not apply.
+
+#include <chrono>
 
 #include "attention_fwd.cuh"
 
+namespace {
+
+// The packed-qkv map of the wgmma loop (see the note above).
+cudaError_t encode_packed_qkv(CUtensorMap* map, const void* qkv, int B, int L, int H, int D) {
+  const cuuint64_t c3 = 3ull * H * D;
+  const cuuint64_t dims[3] = {c3, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {c3 * 2, c3 * 2 * L};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return encode_bf16_map(map, 3, qkv, dims, strides, box);
+}
+
+}  // namespace
+
 // Returns the CUDA error code of the launch (0 on success).  Launches on
 // `stream` and does not synchronise; `out` (and `lse`, unless null) are
-// allocated by the caller.
+// allocated by the caller; qkv's base is 16-byte aligned.
 extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, float* lse, int B, int L,
                                        int H, int D, float scale, int device, void* stream) {
+  cudaError_t err = check_attention_args(B, H, L, D, device);
+  if (err != cudaSuccess) return (int)err;
   const long C = (long)H * D;
-  const Strides in{L * 3 * C, D, 3 * C};  // q, k and v: one head's columns of the packed rows
   const Strides os{L * C, D, C};
+  if (attention_uses_tma(D)) {
+    CUtensorMap map;
+    err = encode_packed_qkv(&map, qkv, B, L, H, D);
+    if (err != cudaSuccess) return (int)err;
+    return launch_attention_tma<3>(map, map, map, make_int3(0, (int)C, (int)(2 * C)), out, lse,
+                                   os, B, H, L, scale, stream);
+  }
+  const Strides in{L * 3 * C, D, 3 * C};  // q, k and v: one head's columns of the packed rows
   const auto* base = static_cast<const __nv_bfloat16*>(qkv);
-  return launch_attention_fwd(base, base + C, base + 2 * C, out, lse, in, in, in, os, B, H, L,
-                              D, scale, device, stream);
+  return launch_attention_mma(base, base + C, base + 2 * C, out, lse, in, in, in, os, B, H, L, D,
+                              scale, stream);
+}
+
+// Host microseconds of one encode of the packed-qkv tensor map (the per-call
+// host cost the wgmma path adds), averaged over `iters` encodes; negative if
+// an encode fails.
+extern "C" double pdm_fused_qkv_attention_encode_us(const void* qkv, int B, int L, int H, int D,
+                                                    int iters) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (encode_packed_qkv(&map, qkv, B, L, H, D) != cudaSuccess) return -1.0;
+  }
+  const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
+  return dt.count() / iters;
 }

@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernel
 `panopticdiffusionmodels_tpu/ops/pallas/fused_attention.py::fused_attention`
-with the hand-written CUDA C++ kernel in `csrc/fused_attention.cu` (sm_90a,
-mma.sync bf16 tensor cores).  `FusedAttention` is the JAX function's custom
+with the hand-written CUDA C++ kernel in `csrc/fused_attention.cu` (sm_90a:
+kernel 1's loop of `csrc/attention_fwd.cuh`, TMA and wgmma for head dim 64,
+mma.sync for the others).  `FusedAttention` is the JAX function's custom
 VJP: the kernel forward, and the JAX package's own f32 recompute of the
 attention gradient (`_fused_attention_bwd`) as the backward, in plain
 PyTorch on both sides, because the TPU kernel has no backward kernel.  That
@@ -13,7 +14,10 @@ What bounds the kernel on an H100: 4*B*H*L^2*D flops against 8*B*H*L*D
 bytes, L/2 flops per byte, far below the card's bf16 ridge at the U-ViT's
 L = 258, so it is bound by the traffic of q, k, v and the output; the
 (L, L) scores never reach device memory (online softmax over 64-key tiles,
-one path for every L; see the source).  The TPU kernel keeps P in f32 for
+one path for every L; see the source).  For head dim 64 it reads q, k and
+v through one TMA tensor map each (4-D, (D, L, H, B) with the view's
+strides), so it needs the base and every stride 16-byte aligned
+(`tensor_map.tma_eligible`).  The TPU kernel keeps P in f32 for
 PV; the Hopper kernel rounds the unnormalised P to bf16 for the tensor
 cores and divides by the row sum in its epilogue.
 
@@ -30,6 +34,7 @@ import ctypes
 import torch
 
 from . import build
+from .tensor_map import tma_eligible
 
 NAME = "fused_attention"
 # Longest L of the TPU kernel's whole-sequence block; past it the JAX
@@ -122,7 +127,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != torch.bfloat16 or t.device != q.device:
             raise ValueError(f"fused_attention: {name} must be bfloat16 on {q.device}, got "
                              f"{t.dtype} on {t.device}")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if not tma_eligible(t):
             raise ValueError(f"fused_attention: {name} needs unit stride along D and "
                              f"16-byte aligned rows, got strides {t.stride()}")
     out = torch.empty((b, h, l, d), dtype=q.dtype, device=q.device)

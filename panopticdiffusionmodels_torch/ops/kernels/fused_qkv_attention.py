@@ -5,7 +5,10 @@ Replaces the Pallas TPU kernels
 `panopticdiffusionmodels_tpu/ops/pallas/fused_qkv_attention.py::fused_attention_qkv`
 (forward) and `::fused_attention_qkv_vjp` (backward) with the hand-written
 CUDA C++ kernels in `csrc/fused_qkv_attention.cu` and
-`csrc/fused_qkv_attention_bwd.cu` (sm_90a, mma.sync bf16 tensor cores).
+`csrc/fused_qkv_attention_bwd.cu` (sm_90a).  The forward runs the attention
+loop of `csrc/attention_fwd.cuh`: TMA loads into an mbarrier ring and wgmma
+for head dim 64, mma.sync for every other head dim (`attention_loop`); the
+backward runs mma.sync.
 
 What bounds them on an H100: the forward does 4*B*L^2*C flops against
 8*B*L*C bytes of qkv read and output written, i.e. L/2 flops per byte, below
@@ -31,6 +34,7 @@ import ctypes
 import torch
 
 from . import build
+from .tensor_map import tma_eligible
 
 NAME = "fused_qkv_attention"
 BWD_NAME = "fused_qkv_attention_bwd"
@@ -123,9 +127,39 @@ def _check(what: str, qkv: torch.Tensor, heads: int) -> int:
     d = qkv.shape[2] // 3 // heads
     if d % 8 or d > 128:
         raise ValueError(f"{what}: head dim {d} must be a multiple of 8, <= 128")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+    if not qkv.is_contiguous() or not tma_eligible(qkv):
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
     return d
+
+
+def attention_loop(d: int, name: str = NAME) -> str:
+    """Which loop of `csrc/attention_fwd.cuh` head dim `d` takes in the
+    library `name` (this kernel's, or kernel 4's `fused_attention`), as the
+    compiled library reports it (a static dispatch on D): 'wgmma+tma' or
+    'mma.sync'.  Builds the library if needed, so on the card only."""
+    fn = build.load(name).pdm_attention_path
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return "wgmma+tma" if fn(d) else "mma.sync"
+
+
+def attention_tma_smem_bytes() -> int:
+    """Dynamic shared memory a CTA of the wgmma loop takes (on the card)."""
+    fn = build.load(NAME).pdm_attention_tma_smem_bytes
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def encode_us(qkv: torch.Tensor, heads: int) -> float:
+    """Host microseconds one forward launch spends encoding its TMA tensor
+    map at qkv's shape (head dim 64), the mean of 1000 encodes."""
+    b, l, c3 = qkv.shape
+    fn = build.load(NAME).pdm_fused_qkv_attention_encode_us
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    fn.restype = ctypes.c_double
+    us = fn(qkv.data_ptr(), b, l, heads, c3 // 3 // heads, 1000)
+    if us < 0:
+        raise RuntimeError(f"fused_attention_qkv: tensor map encode failed for {tuple(qkv.shape)}")
+    return us
 
 
 def fused_attention_qkv(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False):

@@ -24,6 +24,7 @@ from panopticdiffusionmodels_tpu.ops.pallas.fused_attention import fused_attenti
 from panopticdiffusionmodels_torch.ops import attention as port_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_attention as port_kernel
+from panopticdiffusionmodels_torch.ops.kernels.tensor_map import tma_eligible
 
 torch.set_num_threads(1)
 
@@ -111,3 +112,35 @@ def test_build_lists_the_kernel():
     assert port_kernel.NAME in build.KERNELS
     assert (build.CSRC / f"{port_kernel.NAME}.cu").exists()
     assert port_kernel.MAX_FULL_SEQ == 1024
+
+
+def _views():
+    """(name, tensor, eligible) for the TMA check: the layouts the wrappers
+    pass, and the ones a tensor map cannot describe."""
+    packed = torch.zeros((2, 19, 3, 4, 64), dtype=torch.bfloat16)
+    bhld = torch.zeros((2, 4, 19, 64), dtype=torch.bfloat16)
+    padded = torch.zeros((2, 4, 19, 68), dtype=torch.bfloat16)
+    return [
+        ("contiguous (B, H, L, D)", bhld, True),
+        ("q of a packed projection, transposed", packed.permute(2, 0, 3, 1, 4)[0], True),
+        ("v of a packed projection, transposed", packed.permute(2, 0, 3, 1, 4)[2], True),
+        ("(B, L, H, D) transposed to (B, H, L, D)", bhld.transpose(1, 2), True),
+        ("packed qkv (B, L, 3C)", packed.reshape(2, 19, 3 * 4 * 64), True),
+        ("D not innermost", bhld.transpose(-1, -2), False),
+        ("rows 136 bytes apart", padded[..., :64], False),
+        ("base 2 bytes off", bhld.reshape(-1)[1:1 + 2 * 4 * 19 * 8].view(2, 4, 19, 8), False),
+        ("f32, rows 16 bytes apart", torch.zeros((2, 4, 19, 4)), True),
+    ]
+
+
+def _on_meta(t):
+    """The same view (shape, strides, storage offset) of a meta storage."""
+    base = torch.empty(t.untyped_storage().nbytes() // t.element_size(), dtype=t.dtype,
+                       device="meta")
+    return base.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_tma_eligibility_of_views(device):
+    for name, t, want in _views():
+        assert tma_eligible(_on_meta(t) if device == "meta" else t) == want, name

@@ -9,6 +9,15 @@ order); bf16 relative deviation < 1e-3 (the same rounding points, xn and
 qkv in bf16, P in bf16 for PV, but a value next to a bf16 rounding boundary
 may round either way after another summation order; measured 0).
 
+The GEMM half alone, `ln_qkv_gemm_plain` (what the LN-prologue GEMM kernel
+is held to on the card), must equal the JAX kernel's LayerNorm and dot lines
+(`ops/pallas/fused_ln_qkv_attention.py:40-48`) written in jnp, at (2, 37,
+256) and at (1, 130, 512), whose 130 rows leave a ragged 128-row tile:
+f32 relative deviation < 1e-6 (same arithmetic, another summation order);
+bf16 relative deviation < 1e-3 as above.  Its statistics,
+`ln_row_stats_plain`, equal the JAX lines' mean and rsqrt(var + eps) to
+rtol 1e-6.
+
 The port's A/B chain (`scripts/bench_fused_ln.py` of the port, both arms,
 DEPTH = 2, L = 18, C = 64, H = 4, bf16) must equal the JAX chain, restated
 here from the JAX package's own kernels (interpret mode), on the same numpy
@@ -28,6 +37,9 @@ from panopticdiffusionmodels_tpu.ops.pallas.fused_ln_qkv_attention import (
 from panopticdiffusionmodels_tpu.ops.pallas.fused_qkv_attention import fused_attention_qkv
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_ln_qkv_attention as port_kernel
+from panopticdiffusionmodels_torch.ops.kernels.fused_qkv_attention import (
+    attention_qkv_plain as fused_qkv_plain,
+)
 from panopticdiffusionmodels_torch.scripts import bench_fused_ln as port_chain
 
 torch.set_num_threads(1)
@@ -66,6 +78,49 @@ def test_plain_matches_jax_kernel(b, l, c, h, dtype):
             assert _rel(out.float().numpy(), ref32) < 1e-3
 
 
+def _jax_ln_qkv_lines(x, s, b, w, eps=1e-5):
+    """`_kernel`'s LayerNorm and dot lines (l.40-48) on a (rows, C) block."""
+    xf = x.astype(jnp.float32)
+    mu = jnp.mean(xf, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(xf - mu), axis=-1, keepdims=True)
+    rstd = jax.lax.rsqrt(var + eps)
+    xn = (xf - mu) * rstd
+    xn = xn * s.astype(jnp.float32) + b.astype(jnp.float32)
+    qkv = jax.lax.dot_general(xn.astype(w.dtype), w, (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.float32).astype(x.dtype)
+    return qkv, mu[:, 0], rstd[:, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,c", [(2, 37, 256), (1, 130, 512)])
+def test_ln_qkv_gemm_plain_matches_jax_lines(b, l, c, dtype):
+    x, s, bias, w = _inputs(b, l, c, seed=c)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref, mu, rstd = _jax_ln_qkv_lines(jnp.asarray(x.reshape(b * l, c)).astype(jdt),
+                                      jnp.asarray(s), jnp.asarray(bias),
+                                      jnp.asarray(w).astype(jdt))
+    tx = torch.from_numpy(x).to(tdt)
+    for fn in (port_kernel.ln_qkv_gemm, port_kernel.ln_qkv_gemm_plain):
+        out = fn(tx.reshape(b * l, c), torch.from_numpy(s), torch.from_numpy(bias),
+                 torch.from_numpy(w).to(tdt))
+        assert out.dtype == tdt and out.shape == (b * l, 3 * c)
+        bar = 1e-6 if dtype == "float32" else 1e-3
+        assert _rel(out.float().numpy(), np.asarray(ref.astype(jnp.float32))) < bar
+    stats = port_kernel.ln_row_stats_plain(tx)
+    assert stats.shape == (b, l, 2) and stats.dtype == torch.float32
+    np.testing.assert_allclose(stats.reshape(b * l, 2).numpy(),
+                               np.stack([np.asarray(mu), np.asarray(rstd)], axis=-1), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_plain_is_the_composition_of_its_pieces():
+    x, s, bias, w = (torch.from_numpy(a) for a in _inputs(2, 37, 128, seed=4))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    qkv = port_kernel.ln_qkv_gemm_plain(x, s, bias, w)
+    assert torch.equal(port_kernel.fused_ln_qkv_attention_plain(x, s, bias, w, 4, 0.2),
+                       fused_qkv_plain(qkv, 4, 0.2))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     x, s, bias, w = (torch.from_numpy(a) for a in _inputs(1, 1025, 32, seed=0))
     with pytest.raises(ValueError, match="L=1025"):
@@ -78,9 +133,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         port_kernel.fused_ln_qkv_attention(meta, s, bias, w.to("meta"), 4, 0.35)
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
         port_kernel.fused_ln_qkv_attention(meta, s, bias, w.to("meta"), 4, 0.35)
-    port_kernel.launches = 0
+    with pytest.raises(ValueError, match="no kernel"):
+        port_kernel.ln_qkv_gemm(meta[0].detach(), s, bias, w.to("meta"))
+    port_kernel.launches = port_kernel.gemm_launches = 0
     port_kernel.fused_ln_qkv_attention(x, s, bias, w, 4, 0.35)
-    assert port_kernel.launches == 0
+    assert port_kernel.launches == 0 and port_kernel.gemm_launches == 0
+    # The kernels' limits: C a multiple of 64 with no upper bound (the GEMM
+    # streams x in 64-wide k tiles), head dim a multiple of 8 up to 128.
+    assert port_kernel.kernel_limits_error(1024, 16) is None
+    assert port_kernel.kernel_limits_error(1344, 21) is None  # past the old 1280 cap
+    assert port_kernel.kernel_limits_error(2048, 16) is None
+    for c, heads in ((32, 4), (96, 2), (1280 + 32, 41), (256, 1)):
+        assert "multiple" in port_kernel.kernel_limits_error(c, heads), (c, heads)
     assert port_kernel.NAME in build.KERNELS and (build.CSRC / f"{port_kernel.NAME}.cu").exists()
 
 
