@@ -9,9 +9,10 @@ kernels.
 Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every hand-written kernel of the paths, from `csrc/`, with nvcc
-     (one process per source, all at once), with ptxas' registers, spills
-     and wgmma warnings per kernel, and the dynamic shared memory of the
-     wgmma attention loop and the LN-prologue GEMM;
+     (one process per source, all at once), with ptxas' registers, spills,
+     shared memory and wgmma warnings per kernel (named with its template
+     arguments), and the dynamic shared memory of the wgmma attention loop,
+     the wgmma backward kernels and the LN-prologue GEMM;
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
      and training shapes (relative deviation < 5e-3), each shape with the
      loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
@@ -21,15 +22,19 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      bit-identical to the forward without it and its lse is within 1e-4
      relative of the plain one; `attn_impl='infer'` on a CUDA tensor that
      needs a gradient raises;
-     3b. the backward kernel vs `attention_qkv_vjp_plain` at the training
-     shapes and U-ViT-L/2 / U-ViT-H (relative deviation of dqkv < 5e-3),
-     timed in turns with SDPA's backward, and both again with the L2 flushed
-     (64 MB) before every launch; beside the plain version;
+     3b. the backward kernel vs `attention_qkv_vjp_plain` and vs
+     `attention_qkv_vjp_lse_plain` (its own decomposition) at the training
+     shapes, U-ViT-L/2 / U-ViT-H and two ragged short L (relative deviation
+     of dqkv < 5e-3 against each), each shape with the loop it took (wgmma +
+     TMA for head dim 64, mma.sync for the others); two calls bit-identical
+     (no atomics); timed in turns with SDPA's backward, and both again with
+     the L2 flushed (64 MB) before every launch; beside the plain version;
      3c. the ring-hop kernel vs `attention_hop_plain` at the 512-res and
-     256-res sp=2 shard shapes and the TPU verify shapes, nvalid = Lk,
-     Lk - 64, 0 and a per-row mix, q a strided view of the packed qkv
-     (max of the relative deviations of o, m and den < 5e-3), timed beside
-     the plain version and flash SDPA;
+     256-res sp=2 shard shapes, one Lq != Lk shard pair and the TPU verify
+     shapes, nvalid = Lk, Lk - 64, 0 and a per-row mix, q a strided view of
+     the packed qkv (max of the relative deviations of o, m and den < 5e-3),
+     each shape with its loop; timed in turns with flash SDPA and beside the
+     plain version;
      3d. the (B, H, L, D) kernel `fused_attention` vs `attention_plain` at
      U-ViT-L/2 (32, 16, 258, 64), the U-ViT-H and UNet head dims and one
      L > 1024, contiguous and as transposed views (relative deviation
@@ -100,6 +105,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -135,7 +141,10 @@ KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 1
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
-BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72)]
+# Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
+# L (one partial tile; one row past a tile).
+BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
+              (2, 37, 8, 64), (2, 65, 8, 64)]
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
 # Training: batch of the config, 3 warm-up and 20 timed steps; 13 blocks per
@@ -144,10 +153,11 @@ WARMUP_STEPS, TIMED_STEPS, PARITY_BATCH = 3, 20, 16
 LAUNCHES_PER_STEP = 26
 # Ring hops (B, Lq, Lk), 8 heads of 64: the 512-res shards at sp=2 and the
 # config's batch 8 folded to 16 rows (mask stream 1063, image stream 551),
-# the 256-res shards (295, 167), and the TPU verify shapes
-# (scripts/verify_kernel_tpu.py:189-190) at B=2.
+# the 256-res shards (295, 167), the TPU verify shapes
+# (scripts/verify_kernel_tpu.py:189-190) at B=2, and one hop whose query and
+# key shards differ in length.
 HOP_SHAPES = [(16, 1063, 1063), (16, 551, 551), (16, 295, 295), (16, 167, 167),
-              (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258)]
+              (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258), (2, 295, 167)]
 HOP_MAIN_SHAPES = HOP_SHAPES[:2]
 HOP_HEADS, HOP_DIM = 8, 64
 # Sequence-parallel training of mscoco_uvit_small_512 at sp = 2, in-process:
@@ -252,6 +262,25 @@ def phase_environment():
           f" | nvcc: {nvcc} | devices {torch.cuda.device_count()}")
 
 
+def kernel_name(mangled: str) -> str:
+    """A ptxas entry name without its namespaces and parameter types, with its
+    integer and bool template arguments: `dkv_kernel<64>`,
+    `attention_tma_kernel<3, 1>`."""
+    rest, parts = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], []
+    while rest[:1].isdigit():
+        n = len(rest) - len(rest.lstrip("0123456789"))
+        size = int(rest[:n])
+        parts.append(rest[n:n + size])
+        rest = rest[n + size:]
+    if not parts:
+        return mangled[:72]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not args:
+        return parts[-1]
+    values = re.findall(r"L[ib](\d+)E", args.group(1))
+    return f"{parts[-1]}<{', '.join(values)}>"
+
+
 def phase_build():
     t0 = time.perf_counter()
     build.build_all(build.KERNELS)
@@ -260,11 +289,14 @@ def phase_build():
         kernel = "?"
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
+                kernel = kernel_name(line.split("'")[1])
             elif "registers" in line or "spill" in line or "C75" in line:
-                print(f"    {name} [{kernel[:72]}]: {line.strip()}")
+                print(f"    {name} [{kernel}]: {line.strip()}")
+    bwd = fqa.attention_bwd_tma_smem_bytes()
     print(f"[2] dynamic shared memory a CTA: attention wgmma loop "
-          f"{fqa.attention_tma_smem_bytes()} B (2 CTAs an SM), LN-prologue GEMM "
+          f"{fqa.attention_tma_smem_bytes()} B (2 CTAs an SM; the hop's too), backward "
+          f"dq_tma_kernel {bwd['dq_tma_kernel']} B, dkv_tma_kernel "
+          f"{bwd['dkv_tma_kernel']} B (1 CTA an SM each), LN-prologue GEMM "
           f"{fl.gemm_smem_bytes()} B (1 CTA an SM)")
 
 
@@ -328,9 +360,13 @@ def phase_backward(gen):
         scale = d ** -0.5
         out, lse = fqa.fused_attention_qkv(qkv, h, scale, with_lse=True)
         dqkv = fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)
+        again = fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)
         ref = fqa.attention_qkv_vjp_plain(qkv, g, h, scale)
+        ref_lse = fqa.attention_qkv_vjp_lse_plain(qkv, g, out, lse, h, scale)
         torch.cuda.synchronize()
+        assert torch.equal(dqkv, again), ("two calls differ", b, l, h, d)
         rel = rel_dev(dqkv, ref)
+        rel_lse = rel_dev(dqkv, ref_lse)
         max_abs = float((dqkv.float() - ref.float()).abs().max())
         q, k, v = (t.detach().requires_grad_()
                    for t in qkv.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4))
@@ -339,22 +375,24 @@ def phase_backward(gen):
         kernel = lambda: fqa.fused_attention_qkv_vjp(qkv, g, h, scale, out=out, lse=lse)  # noqa
         library = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
         row = dict(
-            shape=[b, l, h, d], max_rel_dev=rel, max_abs_err=max_abs,
+            shape=[b, l, h, d], loop=fqa.attention_bwd_loop(d), max_rel_dev=rel,
+            max_rel_dev_lse_plain=rel_lse, max_abs_err=max_abs, bit_identical=True,
             **alternate(kernel, library),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_vjp_plain(qkv, g, h, scale), iters=5),
             cold_ms=cold_ms(kernel), library_cold_ms=cold_ms(library))
         # qkv + g read, dqkv written, bf16
         row["bound_ms"], row["bound_by"] = bound(14 * b * l * c, 10 * b * l * l * c)
-        print(f"[3b] B{b} L{l} H{h} D{d}: dqkv rel {rel:.2e} max|err| {max_abs:.2e} | kernel "
-              f"{row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
+        print(f"[3b] B{b} L{l} H{h} D{d} ({row['loop']} loop): dqkv rel {rel:.2e} (vs its "
+              f"decomposition {rel_lse:.2e}) max|err| {max_abs:.2e}, two calls bit-identical | "
+              f"kernel {row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
               f"ms, sdpa backward {row['library_ms']:.4f} ms "
               f"{fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
               f"{row['ms'] / row['library_ms']:.2f}); cold L2: kernel {row['cold_ms']:.4f} ms, "
               f"sdpa backward {row['library_cold_ms']:.4f} ms (kernel/sdpa "
               f"{row['cold_ms'] / row['library_cold_ms']:.2f}); bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
-        assert torch.isfinite(dqkv.float()).all() and np.isfinite(rel) and rel < 5e-3, \
-            (b, l, h, d, rel)
+        assert torch.isfinite(dqkv.float()).all() and np.isfinite(rel) and rel < 5e-3 \
+            and rel_lse < 5e-3, (b, l, h, d, rel, rel_lse)
         rows.append(row)
     return rows
 
@@ -373,8 +411,8 @@ def phase_hop(gen):
     rotated shard and, where Lq = Lk, also the hop-0 view of the packed qkv;
     nvalid = Lk, Lk - 64, 0 for every row (0: an all-padding hop) and a
     mix of the three over the rows.  Bar: max(rel o, rel m, rel den) < 5e-3.
-    Timed at nvalid = Lk beside the plain version and flash SDPA, whose
-    (out, lse) is the same partial with den = 1."""
+    Timed at nvalid = Lk in turns with flash SDPA, whose (out, lse) is the
+    same partial with den = 1, and beside the plain version."""
     rows = []
     h, d = HOP_HEADS, HOP_DIM
     c, scale = h * d, d ** -0.5
@@ -401,21 +439,24 @@ def phase_hop(gen):
                 assert ok, (b, lq, lk, kv_name, nv_name, rels)
                 worst = dict(rel=max(worst["rel"], *rels),
                              max_abs_err=max(worst["max_abs_err"], abs_err))
-        row = dict(shape=[b, lq, lk, h, d], max_rel_dev=worst["rel"],
+        row = dict(shape=[b, lq, lk, h, d], loop=ring_hop.hop_loop(d), max_rel_dev=worst["rel"],
                    max_abs_err=worst["max_abs_err"])
+        print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: {row['loop']} loop")
         if (b, lq, lk) in HOP_MAIN_SHAPES:
             full = torch.full((b,), lk, dtype=torch.int32, device="cuda")
             qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
                           for t in (q, kv[..., :c], kv[..., c:]))
             flash = torch.ops.aten._scaled_dot_product_flash_attention
             row.update(
-                ms=cuda_ms(lambda: ring_hop.attention_hop(q, kv, h, scale, full)),
+                **alternate(lambda: ring_hop.attention_hop(q, kv, h, scale, full),
+                            lambda: flash(qh, kh, vh, 0.0, False, False, scale=scale)),
                 plain_ms=cuda_ms(lambda: ring_hop.attention_hop_plain(q, kv, h, scale, full),
-                                 iters=5),
-                library_ms=cuda_ms(lambda: flash(qh, kh, vh, 0.0, False, False, scale=scale)))
+                                 iters=5))
             row["bound_ms"], row["bound_by"] = hop_bound(b, lq, lk, c, h)
-            print(f"[3c] B{b} Lq{lq} Lk{lk}: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, flash sdpa {row['library_ms']:.4f} ms, bound "
+            print(f"[3c] B{b} Lq{lq} Lk{lk}: kernel {row['ms']:.4f} ms "
+                  f"{fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} ms, flash sdpa "
+                  f"{row['library_ms']:.4f} ms {fmt_spread(row['library_ms_spread'])} "
+                  f"(kernel/flash {row['ms'] / row['library_ms']:.2f}), bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         rows.append(row)
     return rows

@@ -44,6 +44,15 @@
 //   CTAs of (128, 128, 64) live rows, not 384: 320 rows against 258 useful,
 //   and 5 key tiles (320 keys).
 //
+// The hop mode (kHop, ring_hop.cu, kernel 3) is the same wgmma loop with
+// three changes: queries and keys have their own lengths (Lq = L, Lk); keys
+// in [nvalid[b], Lk) score the finite -1e30 (a sequence's padding, nvalid
+// read per batch row from device memory) and tile columns past Lk score
+// -inf; and the epilogue stores o NOT divided by the row sum, with each
+// row's max m (natural units, -1e30 exactly for an all-padding row) and sum
+// den as (B, Lq, H) f32 in place of lse.  Every key tile is scored, padding
+// too: with nvalid = 0 the hop returns o = sum_j v_j and den = Lk.
+//
 // Static dispatch on D: D = 64 takes the wgmma loop; every other D (a
 // multiple of 8 up to 128: 72 for U-ViT-H, 40 for the UNet) keeps the
 // mma.sync loop below (64-row CTAs of 4 warps, 64-key tiles loaded through
@@ -270,6 +279,18 @@ constexpr int kTmaSmem = (kTmaConsumers + 2 * kTmaStages) * kTmaTileBytes + 1024
 
 inline bool attention_uses_tma(int D) { return D == 64; }
 
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegBig = -1e30f;                             // JAX's NEG_BIG, natural units
+constexpr float kNegBigLog2 = kNegBig * 1.4426950408889634f;  // the same score in log2 units
+
+// What the hop mode adds (ignored by kernels 1 and 4).
+struct HopArgs {
+  const int* nvalid;  // (B,) int32: keys >= nvalid[b] of batch row b are padding
+  float* m;           // (B, Lq, H) f32 outputs
+  float* den;
+  int Lk;             // keys; the query count is the kernel's L
+};
+
 // One 64 x 64 tile: kRank 3 is kernel 1's packed (3C, L, B) map, whose
 // columns for head h start at col0 + 64 h; kRank 4 is kernel 4's (D, L, H, B).
 template <int kRank>
@@ -282,13 +303,13 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint
   }
 }
 
-template <int kRank>
+template <int kRank, bool kHop>
 __global__ void __launch_bounds__(kTmaThreads, 2)
     attention_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v, int3 col0,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Strides os,
-                         int L, int H, float scale_log2) {
+                         int L, int H, float scale_log2, HopArgs hop) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -302,8 +323,9 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
   const int q0 = blockIdx.x * (kTmaConsumers * kTmaRows);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int Lk = kHop ? hop.Lk : L;
   const int live = min(kTmaConsumers, (L - q0 + kTmaRows - 1) / kTmaRows);
-  const int n_tiles = (L + kTmaRows - 1) / kTmaRows;
+  const int n_tiles = (Lk + kTmaRows - 1) / kTmaRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int wg = warp >> 2;
@@ -348,6 +370,7 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
+  const int nv = kHop ? min(max(hop.nvalid[b], 0), Lk) : Lk;
   const uint64_t desc_q = sw128_desc(smem_u32(sQ + wg * kTmaTile), 16, 1024);
   mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -372,7 +395,12 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int key = j * kTmaRows + (i >> 2) * 8 + tig * 2 + (i & 1);
-      const float sv = key < L ? sc[i] * scale_log2 : -INFINITY;
+      float sv;
+      if constexpr (kHop) {
+        sv = key < nv ? sc[i] * scale_log2 : (key < Lk ? kNegBigLog2 : -INFINITY);
+      } else {
+        sv = key < L ? sc[i] * scale_log2 : -INFINITY;
+      }
       sc[i] = sv;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sv);
     }
@@ -381,7 +409,8 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key j * 64 < L is valid in every tile, so the new max is finite.
+      // key j * 64 < Lk scores a finite value (real, or -1e30 in the hop)
+      // in every tile, so the new max is finite.
       const float m_new = fmaxf(m_run[r], mx[r]);
       corr[r] = exp2f(m_run[r] - m_new);
       m_run[r] = m_new;
@@ -429,10 +458,20 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / l;
     const int row = r ? row1 : row0;
-    if (lse != nullptr && tig == 0 && row < L) {
-      lse[((long)b * H + h) * L + row] = (m_run[r] + log2f(l)) * 0.6931471805599453f;
+    if constexpr (kHop) {
+      inv[r] = 1.f;  // o stays unnormalised
+      if (tig == 0 && row < L) {
+        const long idx = ((long)b * L + row) * H + h;
+        // An all-padding row's max is -1e30 * log2 e; write JAX's -1e30 exactly.
+        hop.m[idx] = m_run[r] <= 0.5f * kNegBigLog2 ? kNegBig : m_run[r] * kLn2;
+        hop.den[idx] = l;
+      }
+    } else {
+      inv[r] = 1.f / l;
+      if (lse != nullptr && tig == 0 && row < L) {
+        lse[((long)b * H + h) * L + row] = (m_run[r] + log2f(l)) * kLn2;
+      }
     }
   }
   __nv_bfloat16* obase = out + b * os.b + h * os.h;
@@ -461,19 +500,21 @@ inline cudaError_t check_attention_args(int B, int H, int L, int D, int device) 
 }
 
 // The wgmma loop over three 64 x 64-box maps (kRank 3: col0 holds the
-// column offsets of q, k and v in the packed map).
-template <int kRank>
+// column offsets of q, k and v in the packed map); L query rows.  kHop: the
+// hop mode, `hop` its mask, key count and outputs (lse unused).
+template <int kRank, bool kHop = false>
 int launch_attention_tma(const CUtensorMap& map_q, const CUtensorMap& map_k,
                          const CUtensorMap& map_v, int3 col0, void* out, float* lse, Strides os,
-                         int B, int H, int L, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_tma_kernel<kRank>,
+                         int B, int H, int L, float scale, void* stream, HopArgs hop = {}) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tma_kernel<kRank, kHop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem);
   if (err != cudaSuccess) return (int)err;
   const int rows = kTmaConsumers * kTmaRows;
   const dim3 grid((L + rows - 1) / rows, H, B);
-  attention_tma_kernel<kRank><<<grid, kTmaThreads, kTmaSmem, static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, col0, static_cast<__nv_bfloat16*>(out), lse, os, L, H,
-      scale * 1.4426950408889634f);
+  attention_tma_kernel<kRank, kHop>
+      <<<grid, kTmaThreads, kTmaSmem, static_cast<cudaStream_t>(stream)>>>(
+          map_q, map_k, map_v, col0, static_cast<__nv_bfloat16*>(out), lse, os, L, H,
+          scale * 1.4426950408889634f, hop);
   return (int)cudaGetLastError();
 }
 

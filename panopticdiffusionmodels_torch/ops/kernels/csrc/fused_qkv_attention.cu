@@ -50,11 +50,8 @@ namespace {
 
 // The packed-qkv map of the wgmma loop (see the note above).
 cudaError_t encode_packed_qkv(CUtensorMap* map, const void* qkv, int B, int L, int H, int D) {
-  const cuuint64_t c3 = 3ull * H * D;
-  const cuuint64_t dims[3] = {c3, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {c3 * 2, c3 * 2 * L};
-  const cuuint32_t box[3] = {64, 64, 1};
-  return encode_bf16_map(map, 3, qkv, dims, strides, box);
+  const int c3 = 3 * H * D;
+  return encode_rows_map(map, qkv, (long long)L * c3, c3, c3, L, B);
 }
 
 }  // namespace

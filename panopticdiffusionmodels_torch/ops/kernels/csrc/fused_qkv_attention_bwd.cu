@@ -11,7 +11,10 @@
 //                         scaled scores (fused_qkv_attention.cu writes it).
 // Output  dqkv (B, L, 3C) bf16, [dq | dk | dv] in qkv's own layout, so the
 //         qkv projection's backward takes it without a relayout.
-// Scratch delta (B, H, L) f32: delta_i = sum_d dout_id * out_id.
+// Scratch rows, 2 * B * H * Lpad f32 (Lpad = L rounded up to 64): per
+//         (batch, head) each row's lse in log2 units (+inf past L), then
+//         delta_i = sum_d dout_id * out_id (0 past L); the mma.sync kernels
+//         use its first B * H * L floats for delta alone.
 //
 // Per head, with P = softmax(Q K^T * scale):
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - delta) * scale,
@@ -22,20 +25,57 @@
 // What bounds it on an H100: the five products are 10*B*L^2*C flops against
 // 14*B*L*C bytes (qkv and dout read, dqkv written), i.e. 5L/7 flops per
 // byte: under the bf16 ridge (~295) at L = 334, over it at L = 590.  The
-// design is two deterministic kernels with no atomics:
-//   * dq_kernel: one CTA per (batch, head, 64-query tile), 4 warps of 16
-//     rows.  It first computes delta for its rows (from out and dout, written
-//     to the scratch for the next kernel), keeps its Q and dO fragments in
-//     registers, streams 64-key K/V tiles through shared memory and
-//     accumulates dQ = dS K in registers.
-//   * dkv_kernel: one CTA per (batch, head, 64-key tile), 4 warps of 16 keys.
-//     It keeps its K and V fragments in registers, streams 64-query Q/dO
-//     tiles (with their lse and delta) through shared memory, works on the
-//     transposed scores S^T = K Q^T, and accumulates dV = P^T dO and
-//     dK = dS^T Q in registers.
+// design is two deterministic kernels with no atomics, so dqkv is
+// bit-reproducible, as the JAX kernel's is; the split recomputes S and dP in
+// both, 7 products instead of 5 (at L = 590 the operations floor goes from
+// 115 to ~161 us at B = 64, H = 8):
+//   * the dq kernel: per (batch, head) block of query rows; it first computes
+//     delta for its rows (written with lse to the scratch for the next
+//     kernel), keeps Q and dO, streams K/V tiles and accumulates dQ = dS K;
+//   * the dkv kernel: per (batch, head) block of keys; it keeps K and V,
+//     streams Q/dO tiles with their lse and delta, works on the transposed
+//     scores S^T = K Q^T and accumulates dV = P^T dO and dK = dS^T Q.
 // Both are launched back to back on one stream (dq first: it writes delta).
-// Products run on the tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate); softmax math is f32.
+//
+// Head dim 64 (every path of the port): the wgmma kernels, on the structure
+// of attention_fwd.cuh's forward loop:
+//   - a CTA owns rows of one (batch, head): 64 a consumer warpgroup, three
+//     warpgroups (192 query rows) in the dq kernel, two (128 keys) in the
+//     dkv kernel; a producer loads the CTA's resident tiles once (Q and dO,
+//     or K and V) and then streams the other operand pair's 64-row tiles
+//     through a 3-stage TMA ring, each stage signalled by a `full` mbarrier
+//     (TMA byte count) and released by an `empty` one (an arrival per
+//     consumer warp); the dkv kernel's stage also carries the tile's 64 lse
+//     and 64 delta values (two 256-byte bulk copies from the scratch);
+//   - tiles are 64 x 64 boxes in the 128-byte swizzle out of a 3-D
+//     (3C, L, B) map of the packed qkv (kernel 1's) and a (C, L, B) map of
+//     dout, so rows past L zero-fill per batch;
+//   - S = Q K^T, dP = dO V^T, S^T = K Q^T and dP^T = V dO^T are wgmma
+//     m64n64k16 with both operands K-major in shared memory; dQ += dS K,
+//     dV += P^T dO and dK += dS^T Q take the product rounded to bf16 as the
+//     register A operand (the accumulator layout is the A-fragment layout,
+//     as P in the forward) and the tile as an MN-major B through the
+//     transpose bit, as the forward reads V; each product's first k step
+//     overwrites its accumulator (scale-d 0), S and dP (S^T and dP^T) are
+//     queued together, and dV's product runs on while dS^T is computed;
+//   - both run one CTA an SM.  The dq kernel (a producer warp, 416
+//     threads) needs ~126 registers a thread: at two CTAs an SM ptxas
+//     capped it below that, spilled and serialized the wgmma pipeline (the
+//     backward 1.5-1.6x slower on an H100).  The dkv kernel holds dK, dV, S^T, dP^T and the
+//     packed P^T and dS^T (~170 registers), so its producer is a whole
+//     warpgroup that gives its registers to the consumers (setmaxnreg
+//     40 / 232, kernel 5's remedy).  Queuing tile j + 1's first products
+//     behind tile j's last made ptxas serialize every wgmma (C7514 / C7515)
+//     and was slower, so each tile's products drain before the next tile's;
+//   - ragged L: keys >= L give P = 0 in the dq kernel; query rows >= L carry
+//     lse = +inf in the dkv kernel (the scratch's padding), so they add
+//     nothing; rows >= L are not stored; a warpgroup whose rows all lie past
+//     L exits and the `empty` barriers count only the live ones.
+// Every other head dim keeps the first design, the mma.sync kernels below:
+// 64-row CTAs of 4 warps of mma.sync m16n8k16, single-buffered tiles loaded
+// through registers, transposed B fragments gathered with scalar loads, D
+// zero-padded to a multiple of 16.  pdm_attention_bwd_path(D) reports the
+// choice (a static dispatch on D).
 //
 // Numerics: as in `_attend_bwd`, P is rounded to bf16 for P^T dO and dS is
 // rounded to bf16 for dS K and dS^T Q; dP, delta and the accumulators are
@@ -45,20 +85,16 @@
 // the bf16-rounded out (flash-attention style).  The two differ by bf16
 // rounding only.
 //
-// Shapes: any L >= 1 (ragged tiles: keys >= L get P = 0, query rows >= L have
-// zero Q and dO rows and lse = +inf, so they add nothing; rows >= L are not
-// stored) and any head dim D that is a multiple of 8 up to 128, padded with
-// zeros to the next multiple of 16 in shared memory.
-//
-// This first version is simple on purpose, like the forward: single-buffered
-// tiles, plain 16-byte loads, B fragments that need a transpose gathered with
-// scalar shared-memory loads.  TMA, wgmma and pipelining are later work.
+// Shapes: any L >= 1 and any head dim D that is a multiple of 8 up to 128.
 
 #include <math.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
+
+// ---- the mma.sync kernels: every head dim but 64 ----
 
 constexpr int kBlock = 64;  // rows per CTA and per streamed tile, 16 per warp
 constexpr int kWarps = 4;
@@ -354,21 +390,402 @@ cudaError_t launch(const void* qkv, const void* out, const void* dout, const flo
   return cudaGetLastError();
 }
 
+// ---- the wgmma kernels: head dim 64 ----
+
+constexpr int kRows = 64;       // rows of a consumer warpgroup and of a streamed tile
+constexpr int kStages = 3;      // ring depth
+constexpr int kTile = kRows * 64;  // elements of one 64 x 64 tile (8 KB)
+constexpr int kTileBytes = kTile * 2;
+// Consumer warpgroups a CTA: 64 rows each.
+constexpr int kDqConsumers = 3;
+constexpr int kDkvConsumers = 2;
+constexpr int kDqThreads = kDqConsumers * 128 + 32;     // + one producer warp
+constexpr int kDkvThreads = (kDkvConsumers + 1) * 128;  // + a producer warpgroup
+constexpr int kDkvProducerRegs = 40;
+constexpr int kDkvConsumerRegs = 232;
+// resident: a tile of each of two tensors a consumer; ring: 2 tiles a stage
+// (+ the dkv kernel's 64 lse and 64 delta a stage); barriers
+constexpr int kDqSmem = (2 * kDqConsumers + 2 * kStages) * kTileBytes + 1024 + 128;
+constexpr int kDkvSmem =
+    (2 * kDkvConsumers + 2 * kStages) * kTileBytes + kStages * 2 * kRows * 4 + 1024 + 128;
+
+inline bool attention_bwd_uses_tma(int D) { return D == 64; }
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem_raw) {
+  const uint32_t raw = smem_u32(smem_raw);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
+// acc = A B^T for 64 x 64 tiles, both K-major over the head dim (four k16
+// steps, 32 bytes apart in each 128-byte row), queued as one group; the
+// first step overwrites acc (scale-d 0).
+__device__ __forceinline__ void mma_abt_tiles(float (&acc)[32], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  wgmma_fence();
+  wgmma_m64n64k16_ss(acc, desc_a, desc_b, 0);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk);
+  wgmma_commit();
+}
+
+// acc += X T for X the bf16 A fragments of a 64 x 64 product (fragment kk:
+// columns 16 kk .. 16 kk + 15) and T a 64 x 64 tile read MN-major (16 rows
+// of 128 bytes a k step), queued as one group.
+__device__ __forceinline__ void mma_xt_tile(float (&acc)[32], const uint32_t (&x)[4][4],
+                                            uint64_t desc_t) {
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n64k16_rs_tnsp_b(acc, x[kk], desc_t + ((kk * 16 * 128) >> 4));
+  }
+  wgmma_commit();
+}
+
+// Rows row0 and row0 + 8 of a 64-wide accumulator into the packed (B, L, 3C)
+// dqkv at `dst` (batch row 0, this head's column 0); rows >= L not stored.
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, long row_stride,
+                                          const float (&acc)[32], int row0, int L, int tig) {
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = dt * 8 + tig * 2;
+    if (row0 < L) {
+      *reinterpret_cast<uint32_t*>(dst + row0 * row_stride + col) =
+          pack_bf16(acc[4 * dt], acc[4 * dt + 1]);
+    }
+    if (row0 + 8 < L) {
+      *reinterpret_cast<uint32_t*>(dst + (row0 + 8) * row_stride + col) =
+          pack_bf16(acc[4 * dt + 2], acc[4 * dt + 3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDqThreads, 1)
+    dq_tma_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                  const __grid_constant__ CUtensorMap map_do, const __nv_bfloat16* __restrict__ out,
+                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ rows, __nv_bfloat16* __restrict__ dqkv, int L, int H,
+                  float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(align_1024(smem_raw));
+  __nv_bfloat16* sDO = sQ + kDqConsumers * kTile;
+  __nv_bfloat16* sK = sDO + kDqConsumers * kTile;
+  __nv_bfloat16* sV = sK + kStages * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = blockIdx.x * (kDqConsumers * kRows);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C = H * 64;
+  const int live = min(kDqConsumers, (L - q0 + kRows - 1) / kRows);
+  const int n_tiles = (L + kRows - 1) / kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * live);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kDqConsumers) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * live * kTileBytes);
+      for (int w = 0; w < live; ++w) {
+        tma_load_3d(sQ + w * kTile, &map_qkv, q_full, h * 64, q0 + w * kRows, b);
+        tma_load_3d(sDO + w * kTile, &map_do, q_full, h * 64, q0 + w * kRows, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_3d(sK + s * kTile, &map_qkv, &full[s], C + h * 64, j * kRows, b);
+        tma_load_3d(sV + s * kTile, &map_qkv, &full[s], 2 * C + h * 64, j * kRows, b);
+      }
+    }
+    return;
+  }
+  if (wg >= live) return;  // every row of this warpgroup is >= L
+
+  const int wl = warp & 3;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int row0 = q0 + wg * kRows + wl * 16 + gid;  // this thread's rows: row0, row0 + 8
+  const long bh = (long)b * H + h;
+  const long lpad = (long)n_tiles * kRows;
+
+  // delta of rows row0 and row0 + 8: the four threads of a row group sum 16
+  // columns each; then both rows' lse (log2 units) and delta go to the
+  // scratch for the dkv kernel (rows of a live warpgroup are < lpad).
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    float acc = 0.f;
+    if (row < L) {
+      const long off = ((long)b * L + row) * C + h * 64 + tig * 16;
+      const uint4* op = reinterpret_cast<const uint4*>(out + off);
+      const uint4* gp = reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint4 ov = __ldg(op + c);
+        const uint4 gv = __ldg(gp + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 of = __bfloat1622float2(o2[i]);
+          const float2 gf = __bfloat1622float2(g2[i]);
+          acc += of.x * gf.x + of.y * gf.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[r] = acc;
+    lse2[r] = row < L ? lse[bh * L + row] * kLog2e : INFINITY;
+    if (tig == 0) {
+      rows[bh * 2 * lpad + row] = lse2[r];
+      rows[(bh * 2 + 1) * lpad + row] = acc;
+    }
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  const uint64_t desc_q = sw128_desc(smem_u32(sQ + wg * kTile), 16, 1024);
+  const uint64_t desc_do = sw128_desc(smem_u32(sDO + wg * kTile), 16, 1024);
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint64_t desc_k = sw128_desc(smem_u32(sK + s * kTile), 16, 1024);
+    const uint64_t desc_v = sw128_desc(smem_u32(sV + s * kTile), 16, 1024);
+    mbar_wait(&full[s], (j / kStages) & 1);
+    float sc[32], dp[32];
+    mma_abt_tiles(sc, desc_q, desc_k);   // S = Q K^T
+    mma_abt_tiles(dp, desc_do, desc_v);  // dP = dO V^T, queued behind S
+    wgmma_wait<1>();
+    reg_fence(sc);
+    // P from the forward's lse; keys >= L (zero-filled K rows) give 0.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = j * kRows + (i >> 2) * 8 + tig * 2 + (i & 1);
+      sc[i] = key < L ? exp2f(sc[i] * scale_log2 - lse2[(i >> 1) & 1]) : 0.f;
+    }
+    wgmma_wait<0>();
+    reg_fence(dp);
+    // dS = P o (dP - delta) * scale, rounded to bf16: register i of the
+    // accumulator is row (i >> 1) & 1, and fragment kk takes registers
+    // 8 kk .. 8 kk + 7 (pairs 2 e, 2 e + 1 of row e & 1).
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        ds[kk][e] = pack_bf16(sc[i] * (dp[i] - dl[e & 1]) * scale,
+                              sc[i + 1] * (dp[i + 1] - dl[e & 1]) * scale);
+      }
+    }
+    mma_xt_tile(dq, ds, desc_k);  // dQ += dS K
+    wgmma_wait<0>();
+    reg_fence(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+  const long row_stride = 3L * C;
+  store_acc(dqkv + (long)b * L * row_stride + h * 64, row_stride, dq, row0, L, tig);
+}
+
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    dkv_tma_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ rows,
+                   __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(align_1024(smem_raw));
+  __nv_bfloat16* sV = sK + kDkvConsumers * kTile;
+  __nv_bfloat16* sQ = sV + kDkvConsumers * kTile;
+  __nv_bfloat16* sDO = sQ + kStages * kTile;
+  float* sRow = reinterpret_cast<float*>(sDO + kStages * kTile);  // a stage: 64 lse, 64 delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRow + kStages * 2 * kRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * (kDkvConsumers * kRows);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C = H * 64;
+  const int live = min(kDkvConsumers, (L - k0 + kRows - 1) / kRows);
+  const int n_tiles = (L + kRows - 1) / kRows;
+  const long bh = (long)b * H + h;
+  const long lpad = (long)n_tiles * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * live);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kDkvConsumers) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kDkvProducerRegs>();
+    if (warp == 4 * kDkvConsumers && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * live * kTileBytes);
+      for (int w = 0; w < live; ++w) {
+        tma_load_3d(sK + w * kTile, &map_qkv, kv_full, C + h * 64, k0 + w * kRows, b);
+        tma_load_3d(sV + w * kTile, &map_qkv, kv_full, 2 * C + h * 64, k0 + w * kRows, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);  // round 0 passes at once
+        mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kRows * 4);
+        tma_load_3d(sQ + s * kTile, &map_qkv, &full[s], h * 64, j * kRows, b);
+        tma_load_3d(sDO + s * kTile, &map_do, &full[s], h * 64, j * kRows, b);
+        bulk_load(sRow + s * 2 * kRows, rows + bh * 2 * lpad + j * kRows, kRows * 4, &full[s]);
+        bulk_load(sRow + s * 2 * kRows + kRows, rows + (bh * 2 + 1) * lpad + j * kRows, kRows * 4,
+                  &full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kDkvConsumerRegs>();
+  if (wg >= live) return;  // every key of this warpgroup is >= L
+
+  const int wl = warp & 3;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  const uint64_t desc_k = sw128_desc(smem_u32(sK + wg * kTile), 16, 1024);
+  const uint64_t desc_v = sw128_desc(smem_u32(sV + wg * kTile), 16, 1024);
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint64_t desc_q = sw128_desc(smem_u32(sQ + s * kTile), 16, 1024);
+    const uint64_t desc_do = sw128_desc(smem_u32(sDO + s * kTile), 16, 1024);
+    const float* sl = sRow + s * 2 * kRows;  // the tile's lse (log2 units), then delta
+    mbar_wait(&full[s], (j / kStages) & 1);
+
+    // Transposed scores: rows are this warpgroup's keys, columns the tile's
+    // queries; register i is column (i >> 2) * 8 + 2 tig + (i & 1).
+    float st[32], dpt[32];
+    mma_abt_tiles(st, desc_k, desc_q);    // S^T = K Q^T
+    mma_abt_tiles(dpt, desc_v, desc_do);  // dP^T = V dO^T, queued behind S^T
+    wgmma_wait<1>();
+    reg_fence(st);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + c * 8 + tig * 2);
+      st[4 * c] = exp2f(st[4 * c] * scale_log2 - l2.x);  // P^T; query rows >= L: 0
+      st[4 * c + 1] = exp2f(st[4 * c + 1] * scale_log2 - l2.y);
+      st[4 * c + 2] = exp2f(st[4 * c + 2] * scale_log2 - l2.x);
+      st[4 * c + 3] = exp2f(st[4 * c + 3] * scale_log2 - l2.y);
+    }
+    uint32_t pt[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+    }
+    mma_xt_tile(dv, pt, desc_do);  // dV += P^T dO, queued behind dP^T
+    wgmma_wait<1>();                // dP^T is done; dV may run on
+    reg_fence(dpt);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sl + kRows + c * 8 + tig * 2);
+      dpt[4 * c] = st[4 * c] * (dpt[4 * c] - d2.x) * scale;  // dS^T
+      dpt[4 * c + 1] = st[4 * c + 1] * (dpt[4 * c + 1] - d2.y) * scale;
+      dpt[4 * c + 2] = st[4 * c + 2] * (dpt[4 * c + 2] - d2.x) * scale;
+      dpt[4 * c + 3] = st[4 * c + 3] * (dpt[4 * c + 3] - d2.y) * scale;
+    }
+    uint32_t dst[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dst[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+      }
+    }
+    mma_xt_tile(dk, dst, desc_q);  // dK += dS^T Q
+    wgmma_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+  const long row_stride = 3L * C;
+  const int row0 = k0 + wg * kRows + wl * 16 + gid;
+  __nv_bfloat16* dst0 = dqkv + (long)b * L * row_stride + h * 64;
+  store_acc(dst0 + C, row_stride, dk, row0, L, tig);
+  store_acc(dst0 + 2 * C, row_stride, dv, row0, L, tig);
+}
+
+cudaError_t launch_tma(const void* qkv, const void* out, const void* dout, const float* lse,
+                       float* rows, void* dqkv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap map_qkv, map_do;
+  cudaError_t err;
+  const int C = H * 64;
+  if ((err = encode_rows_map(&map_qkv, qkv, 3LL * L * C, 3 * C, 3 * C, L, B)) != cudaSuccess ||
+      (err = encode_rows_map(&map_do, dout, (long long)L * C, C, C, L, B)) != cudaSuccess) {
+    return err;
+  }
+  if ((err = cudaFuncSetAttribute(dq_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kDqSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dkv_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kDkvSmem)) != cudaSuccess) {
+    return err;
+  }
+  const dim3 dq_grid((L + kDqConsumers * kRows - 1) / (kDqConsumers * kRows), H, B);
+  const dim3 dkv_grid((L + kDkvConsumers * kRows - 1) / (kDkvConsumers * kRows), H, B);
+  auto* dq = static_cast<__nv_bfloat16*>(dqkv);
+  dq_tma_kernel<<<dq_grid, kDqThreads, kDqSmem, stream>>>(
+      map_qkv, map_do, static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), lse, rows, dq, L, H, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkv_tma_kernel<<<dkv_grid, kDkvThreads, kDkvSmem, stream>>>(map_qkv, map_do, rows, dq, L, H,
+                                                              scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the CUDA error code of the launches (0 on success).  Launches on
-// `stream` and does not synchronise; `dqkv` and the `delta` scratch (B, H, L)
-// f32 are allocated by the caller.
+// `stream` and does not synchronise; `dqkv` and the `rows` scratch (at least
+// 2 * B * H * Lpad f32, Lpad = L rounded up to 64) are allocated by the
+// caller; every pointer is 16-byte aligned.
 extern "C" int pdm_fused_qkv_attention_bwd(const void* qkv, const void* out, const void* dout,
-                                           const float* lse, float* delta, void* dqkv, int B,
+                                           const float* lse, float* rows, void* dqkv, int B,
                                            int L, int H, int D, float scale, int device,
                                            void* stream) {
-  if (B < 1 || L < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0) {
+  if (B < 1 || L < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0 || B > 65535 || H > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (attention_bwd_uses_tma(D)) {
+    return (int)launch_tma(qkv, out, dout, lse, rows, dqkv, B, L, H, scale, s);
+  }
+  float* delta = rows;
   switch ((D + 15) / 16) {
     case 1: return (int)launch<16>(qkv, out, dout, lse, delta, dqkv, B, L, H, D, scale, s);
     case 2: return (int)launch<32>(qkv, out, dout, lse, delta, dqkv, B, L, H, D, scale, s);
@@ -380,3 +797,10 @@ extern "C" int pdm_fused_qkv_attention_bwd(const void* qkv, const void* out, con
     default: return (int)launch<128>(qkv, out, dout, lse, delta, dqkv, B, L, H, D, scale, s);
   }
 }
+
+// 1 if head dim D takes the wgmma + TMA kernels, 0 if the mma.sync ones.
+extern "C" int pdm_attention_bwd_path(int D) { return attention_bwd_uses_tma(D) ? 1 : 0; }
+
+// Dynamic shared memory a CTA of the wgmma dq kernel (dkv = 0) or dkv kernel
+// (dkv = 1) takes, in bytes.
+extern "C" int pdm_attention_bwd_tma_smem_bytes(int dkv) { return dkv ? kDkvSmem : kDqSmem; }

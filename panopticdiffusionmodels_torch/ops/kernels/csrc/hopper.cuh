@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels (the
-// attention loop of attention_fwd.cuh and the LayerNorm-prologue GEMM of
+// attention loop of attention_fwd.cuh, the attention backward of
+// fused_qkv_attention_bwd.cu and the LayerNorm-prologue GEMM of
 // fused_ln_qkv_attention.cu): mbarriers, TMA tile loads, wgmma shared-memory
 // descriptors and products, all as inline PTX, and the host-side encode of a
 // TMA tensor map (cuTensorMapEncodeTiled, looked up at run time through the
@@ -95,6 +96,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes global -> shared (no tensor map), completing on
+// an mbarrier; both addresses and `bytes` multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- register reallocation between warpgroups (all 128 threads of a
 // warpgroup execute it; the counts are multiples of 8 in [24, 256]) ----
 
@@ -150,9 +162,11 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 // mma.sync m16n8k16 A-fragment layout of its 16 rows.
 
 // d += A B for a 64x64 tile, k16: A (64 x 16) and B (64 keys x 16) both
-// K-major in shared memory (descriptors).
+// K-major in shared memory (descriptors).  scale_d = 0: d = A B, the
+// accumulator's old values unread (a product's first k step, so that no
+// ordinary instruction has to zero an accumulator while other products run).
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
-                                                   uint64_t desc_b) {
+                                                   uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
@@ -166,7 +180,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
       "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d += A B for a 64x64 tile, k16: A (64 x 16) from registers in the mma.sync
@@ -282,6 +296,17 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 3-D (width, rows, B) map of a (B, rows, width) bf16 view with element
+// strides (batch bs, row rs, column 1) and 64 x 64 boxes, so that rows past
+// `rows` zero-fill per batch and are never read from the next one.
+inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, long long bs, long long rs,
+                                   int width, int rows, int B) {
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return encode_bf16_map(map, 3, base, dims, strides, box);
 }
 
 }  // namespace

@@ -26,41 +26,43 @@
 // bytes in and out per batch row, i.e. about Lq/2 flops per byte at Lq = Lk:
 // at the 512-res mask-stream shard (Lq = Lk = 1063) that is above the card's
 // ~295 flop/byte bf16 ridge, so the floor is the tensor cores' rate; at the
-// image-stream shard (551) the two floors meet.  The
-// design is the forward kernel's (fused_qkv_attention.cu): one CTA per
-// (64-row query tile, head, batch row), Q fragments in registers, 64-key K/V
-// tiles through shared memory, online softmax with the running max, sum and
-// (64, D) accumulator in registers, mma.sync m16n8k16 bf16 with f32
-// accumulation; the (Lq, Lk) scores never reach device memory.  The TPU
-// kernel's lane-aligned head groups, 128-lane stats blocks and Q_CHUNK do not
-// carry over.
+// image-stream shard (551) the two floors meet.  The (Lq, Lk) scores never
+// reach device memory (online softmax).  The TPU kernel's lane-aligned head
+// groups, 128-lane stats blocks and Q_CHUNK do not carry over.
+//
+// Head dim 64 (every path of the port) runs the wgmma loop of
+// attention_fwd.cuh in its hop mode, kernel 1's loop with the nvalid mask,
+// two lengths and the unnormalised epilogue: per (128 query rows, head,
+// batch row) a producer warp loads the Q tiles once and streams 64-key K/V
+// tiles through a 3-stage TMA ring (full / empty mbarriers), two consumer
+// warpgroups run S = Q K^T and O += P V as wgmma m64n64k16.  The tensor maps
+// cover the views the ring passes: q as 3-D (C, Lq, B) with the view's row
+// and batch strides (row stride 3C for qkv[..., :C] of the local packed
+// shard), kv as (2C, Lk, B) (the rotated contiguous shard, or qkv[..., C:]
+// at hop 0), 64 x 64 boxes in the 128-byte swizzle, K of head h at column
+// 64 h and V at C + 64 h; TMA zero-fills rows past Lq and Lk per batch row.
+//
+// Every other head dim keeps the first design, the mma.sync kernel below:
+// one CTA per (64-row query tile, head, batch row), 4 warps of mma.sync
+// m16n8k16, single-buffered 64-key K/V tiles loaded through registers, V
+// fragments gathered with scalar shared-memory loads.  pdm_attention_path(D)
+// (attention_fwd.cuh) reports the choice.
 //
 // Numerics: scores and the running statistics are f32, in the log2 domain
 // (s * scale * log2 e, exp2); m is converted back to natural units on the
 // way out (-1e30 exactly for an all-padding row).  P is rounded to bf16 for
 // the PV product, after the online rescaling; `_hop_xla` rounds exp(s - m)
 // with the hop's final m.  The two differ by bf16 rounding only.
-//
-// This first version is simple on purpose: single-buffered tiles loaded with
-// plain 16-byte loads, V fragments gathered with scalar shared-memory loads.
-// TMA, wgmma and a multi-stage pipeline are later work.
 
 #include <math.h>
 
-#include "mma_bf16.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-static_assert(kBlockM == kWarps * 16, "one 16-row mma slice per warp");
-
+// The mma.sync kernel takes attention_fwd.cuh's tile constants (kBlockM
+// query rows of 4 warps, kBlockN-key tiles) and its kLn2 / kNegBig.
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegBig = -1e30f;             // JAX's NEG_BIG, natural units
-constexpr float kNegBigLog2 = kNegBig * kLog2e;  // the same score in log2 units
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -252,17 +254,31 @@ cudaError_t launch(const void* q, long q_bs, long q_rs, const void* kv, long kv_
 // Returns the CUDA error code of the launch (0 on success).  Launches on
 // `stream` and does not synchronise; `out`, `m` and `den` are allocated by
 // the caller, `nvalid` is a device array of B int32.  Strides are in
-// elements; every row and batch stride and every head offset must keep the
-// 16-byte loads aligned (multiples of 8 elements, 16-byte aligned bases).
+// elements; every row and batch stride and every base must be 16-byte
+// aligned (multiples of 8 elements; TMA's rule for head dim 64, the 16-byte
+// loads' for the others).
 extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const void* kv,
                             long long kv_bs, long long kv_rs, const int* nvalid, void* out,
                             float* m, float* den, int B, int Lq, int Lk, int H, int D,
                             float scale, int device, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0) {
+  if (B < 1 || Lq < 1 || Lk < 1 || H < 1 || D < 8 || D > 128 || D % 8 != 0 || B > 65535 ||
+      H > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int C = H * D;
+  if (attention_uses_tma(D)) {
+    CUtensorMap map_q, map_kv;
+    if ((err = encode_rows_map(&map_q, q, q_bs, q_rs, C, Lq, B)) != cudaSuccess ||
+        (err = encode_rows_map(&map_kv, kv, kv_bs, kv_rs, 2 * C, Lk, B)) != cudaSuccess) {
+      return (int)err;
+    }
+    const Strides os{(long)Lq * C, D, C};  // out is contiguous (B, Lq, C)
+    return launch_attention_tma<3, true>(map_q, map_kv, map_kv, make_int3(0, 0, C), out, nullptr,
+                                         os, B, H, Lq, scale, stream,
+                                         HopArgs{nvalid, m, den, Lk});
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PDM_HOP_LAUNCH(DP)                                                                  \
   return (int)launch<DP>(q, (long)q_bs, (long)q_rs, kv, (long)kv_bs, (long)kv_rs, nvalid, \

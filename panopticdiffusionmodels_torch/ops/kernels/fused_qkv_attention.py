@@ -8,7 +8,8 @@ CUDA C++ kernels in `csrc/fused_qkv_attention.cu` and
 `csrc/fused_qkv_attention_bwd.cu` (sm_90a).  The forward runs the attention
 loop of `csrc/attention_fwd.cuh`: TMA loads into an mbarrier ring and wgmma
 for head dim 64, mma.sync for every other head dim (`attention_loop`); the
-backward runs mma.sync.
+backward's two kernels take the same structure for head dim 64 (TMA ring,
+mbarriers, wgmma) and mma.sync for the others (`attention_bwd_loop`).
 
 What bounds them on an H100: the forward does 4*B*L^2*C flops against
 8*B*L*C bytes of qkv read and output written, i.e. L/2 flops per byte, below
@@ -25,7 +26,9 @@ in where P is rounded to bf16.
 
 On a CPU tensor the wrappers compute the plain PyTorch versions
 (`attention_qkv_plain`, `attention_qkv_vjp_plain`); on a CUDA tensor they
-launch the kernels or raise.
+launch the kernels or raise.  `attention_qkv_vjp_lse_plain` restates the
+backward kernel's own decomposition (P from lse, delta from out), so that a
+difference of formulation can be told apart from a fault of the kernel.
 """
 from __future__ import annotations
 
@@ -105,6 +108,33 @@ def attention_qkv_vjp_plain(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, l, c3).to(qkv.dtype)
 
 
+def attention_qkv_vjp_lse_plain(qkv: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """`attention_qkv_vjp_plain` as the backward kernel decomposes it: P is
+    rebuilt as exp(S * scale - lse) from the forward's lse (B, H, L) and
+    delta = rowsum(dO * out) is taken from the forward's `out` (B, L, C) as
+    it was stored (bf16 on the kernel's path) instead of rowsum(dP * P).  P
+    and dS are rounded to v's dtype for their products; everything else is
+    the accumulation dtype.  Packed (B, L, 3C) in qkv's dtype."""
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    q, k, v = _split_heads(qkv, heads)
+    acc = _acc_dtype(qkv.dtype)
+    do = g.reshape(b, l, heads, d).transpose(1, 2).to(acc)
+    o = out.reshape(b, l, heads, d).transpose(1, 2).to(acc)
+    q, k, vf = q.to(acc), k.to(acc), v.to(acc)
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse.to(acc)[..., None])
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).to(acc).transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(v.dtype).to(acc)
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv])  # (3, B, H, L, D)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, l, c3).to(qkv.dtype)
+
+
 def _kernel(name: str, symbol: str, n_pointers: int):
     if name not in _fns:
         fn = getattr(build.load(name), symbol)
@@ -140,6 +170,23 @@ def attention_loop(d: int, name: str = NAME) -> str:
     fn = build.load(name).pdm_attention_path
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return "wgmma+tma" if fn(d) else "mma.sync"
+
+
+def attention_bwd_loop(d: int) -> str:
+    """Which kernels of `csrc/fused_qkv_attention_bwd.cu` head dim `d`
+    takes, as the compiled library reports it (a static dispatch on D):
+    'wgmma+tma' or 'mma.sync'.  On the card only."""
+    fn = build.load(BWD_NAME).pdm_attention_bwd_path
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return "wgmma+tma" if fn(d) else "mma.sync"
+
+
+def attention_bwd_tma_smem_bytes() -> dict:
+    """Dynamic shared memory a CTA of each wgmma backward kernel takes (on
+    the card)."""
+    fn = build.load(BWD_NAME).pdm_attention_bwd_tma_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return {"dq_tma_kernel": fn(0), "dkv_tma_kernel": fn(1)}
 
 
 def attention_tma_smem_bytes() -> int:
@@ -197,15 +244,16 @@ def fused_attention_qkv_vjp(qkv: torch.Tensor, g: torch.Tensor, heads: int, scal
     """dL/dqkv (B, L, 3C) from packed qkv and the output cotangent g (B, L, C).
 
     The kernel for CUDA tensors, which also takes the forward's `out` and
-    `lse` (`fused_attention_qkv(..., with_lse=True)`); on CPU tensors the
-    plain version, which needs neither."""
+    `lse` (`fused_attention_qkv(..., with_lse=True)`); g must be a tensor a
+    TMA map can take (`tma_eligible`), as qkv; on CPU tensors the plain
+    version, which needs neither."""
     if qkv.device.type == "cpu":
         return attention_qkv_vjp_plain(qkv, g, heads, scale)
     d = _check("fused_attention_qkv_vjp", qkv, heads)
     b, l, c3 = qkv.shape
     for name, t in (("g", g), ("out", out)):
         if t is None or t.shape != (b, l, c3 // 3) or t.dtype != qkv.dtype \
-                or t.device != qkv.device or not t.is_contiguous() or t.data_ptr() % 16:
+                or t.device != qkv.device or not t.is_contiguous() or not tma_eligible(t):
             raise ValueError(f"fused_attention_qkv_vjp: {name} must be a contiguous, "
                              f"16-byte aligned {qkv.dtype} ({b}, {l}, {c3 // 3}) tensor on "
                              f"{qkv.device}")
@@ -214,9 +262,10 @@ def fused_attention_qkv_vjp(qkv: torch.Tensor, g: torch.Tensor, heads: int, scal
         raise ValueError(f"fused_attention_qkv_vjp: lse must be a contiguous float32 "
                          f"({b}, {heads}, {l}) tensor on {qkv.device}")
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, heads, l), dtype=torch.float32, device=qkv.device)
+    # Each row's lse and delta, per (batch, head) padded to 64-row tiles.
+    rows = torch.empty((b, heads, 2, -(-l // 64) * 64), dtype=torch.float32, device=qkv.device)
     err = _kernel(BWD_NAME, "pdm_fused_qkv_attention_bwd", 6)(
-        qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), rows.data_ptr(),
         dqkv.data_ptr(), b, l, heads, d, float(scale), qkv.device.index or 0,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     if err:

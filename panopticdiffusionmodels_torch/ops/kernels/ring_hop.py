@@ -2,8 +2,11 @@
 
 Replaces the Pallas TPU kernel
 `panopticdiffusionmodels_tpu/ops/pallas/ring_hop.py::attention_hop` with the
-hand-written CUDA C++ kernel in `csrc/ring_hop.cu` (sm_90a, mma.sync bf16
-tensor cores).  A hop is the local attention of one sequence-parallel shard's
+hand-written CUDA C++ kernel in `csrc/ring_hop.cu` (sm_90a).  For head dim 64
+it is the forward attention loop of `csrc/attention_fwd.cuh` in its hop mode
+(TMA into an mbarrier ring, wgmma), with TMA tensor maps over the views the
+ring passes; every other head dim keeps an mma.sync kernel (`hop_loop`).  A
+hop is the local attention of one sequence-parallel shard's
 queries against one shard of keys and values, left unnormalised so that
 `ops/ring_attention.py` can combine the hops exactly:
 
@@ -33,6 +36,7 @@ import ctypes
 import torch
 
 from . import build
+from .tensor_map import tma_eligible
 
 NAME = "ring_hop"
 NEG_BIG = -1e30
@@ -87,20 +91,32 @@ def _kernel():
     return _fn
 
 
+def hop_loop(d: int) -> str:
+    """Which loop head dim `d` takes in `csrc/ring_hop.cu`, as the compiled
+    library reports it (a static dispatch on D): 'wgmma+tma' or 'mma.sync'.
+    On the card only."""
+    fn = build.load(NAME).pdm_attention_path
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return "wgmma+tma" if fn(d) else "mma.sync"
+
+
 def _check_operand(name: str, t: torch.Tensor, width: int) -> None:
+    """A (B, L, width) view the kernel can read: unit column stride, base and
+    row and batch strides 16-byte aligned, which is also what a TMA tensor
+    map of the wgmma loop needs (`tma_eligible`)."""
     if t.dim() != 3 or t.shape[2] != width:
         raise ValueError(f"attention_hop: {name} must be (B, L, {width}), got {tuple(t.shape)}")
-    if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+    if not tma_eligible(t):
         raise ValueError(f"attention_hop: {name} needs unit column stride, row and batch "
                          f"strides that are multiples of 8 elements and a 16-byte aligned "
-                         f"base; got strides {t.stride()}")
+                         f"base (a TMA tensor map's rule); got strides {t.stride()}")
 
 
 def attention_hop(q: torch.Tensor, kv: torch.Tensor, heads: int, scale: float, nvalid):
     """(o, m, den) of one hop, as `attention_hop_plain`; the kernel for CUDA
     tensors, which takes bf16 q and kv with any row and batch strides that
-    keep 16-byte loads aligned (a view of the packed qkv), and nvalid as an
-    int or an int32 device tensor of B values (or one value)."""
+    are 16-byte aligned (a view of the packed qkv; it raises otherwise), and
+    nvalid as an int or an int32 device tensor of B values (or one value)."""
     if q.device.type == "cpu":
         return attention_hop_plain(q, kv, heads, scale, nvalid)
     if q.device.type != "cuda" or kv.device != q.device:

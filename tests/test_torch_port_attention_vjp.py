@@ -10,6 +10,7 @@ forward and backward on CPU tensors, so its wiring is checked here; the
 forward-only kernel route refuses a tensor that needs a gradient.
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -70,6 +71,42 @@ def test_vjp_plain_matches_jax_bf16(b, l, h, d):
         assert _rel(ours.float().numpy(), ref.astype(jnp.float32)) < 1e-2
 
 
+def _lse_plain(qkv, g, h, scale):
+    """`attention_qkv_vjp_lse_plain` on the plain forward's out and lse."""
+    qkv, g = torch.from_numpy(qkv), torch.from_numpy(g)
+    return qkv, g, port_kernel.attention_qkv_plain(qkv, h, scale, with_lse=True)
+
+
+@pytest.mark.parametrize("b,l,h,d", SHAPES)
+def test_vjp_lse_plain_matches_jax_f32(b, l, h, d):
+    """The backward kernel's own decomposition (P from lse, delta from out)
+    equals the JAX kernel and `attention_qkv_vjp_plain` at the f32 bar."""
+    qkv, g = _inputs(b, l, h, d, seed=l * 17 + h + d)
+    scale = d ** -0.5
+    x, gt, (out, lse) = _lse_plain(qkv, g, h, scale)
+    ours = port_kernel.attention_qkv_vjp_lse_plain(x, gt, out, lse, h, scale).numpy()
+    refs = (*_jax_refs(jnp.asarray(qkv), jnp.asarray(g), h, scale),
+            port_kernel.attention_qkv_vjp_plain(x, gt, h, scale).numpy())
+    for ref in refs:
+        np.testing.assert_allclose(ours, np.asarray(ref), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("b,l,h,d", SHAPES)
+def test_vjp_lse_plain_matches_jax_bf16(b, l, h, d):
+    qkv, g = _inputs(b, l, h, d, seed=l * 19 + h + d)
+    scale = d ** -0.5
+    x, gt = (torch.from_numpy(t).to(torch.bfloat16) for t in (qkv, g))
+    out, lse = port_kernel.attention_qkv_plain(x, h, scale, with_lse=True)
+    assert out.dtype == torch.bfloat16  # delta is taken from the stored bf16 out
+    ours = port_kernel.attention_qkv_vjp_lse_plain(x, gt, out, lse, h, scale)
+    assert ours.dtype == torch.bfloat16
+    refs = (*_jax_refs(jnp.asarray(qkv).astype(jnp.bfloat16),
+                       jnp.asarray(g).astype(jnp.bfloat16), h, scale),
+            port_kernel.attention_qkv_vjp_plain(x, gt, h, scale).float().numpy())
+    for ref in refs:
+        assert _rel(ours.float().numpy(), np.asarray(ref, np.float32)) < 1e-2
+
+
 def test_function_gradcheck_float64():
     x = torch.from_numpy(_inputs(2, 9, 2, 4, seed=1)[0].astype(np.float64)).requires_grad_()
     assert torch.autograd.gradcheck(lambda t: port_attention.attention_qkv(t, 2, impl="auto"),
@@ -126,8 +163,28 @@ def test_vjp_wrapper_refuses_other_devices():
         port_kernel.fused_attention_qkv_vjp(x, x[..., :16], 2, 0.25)
 
 
+def _with_headers(src: str) -> str:
+    """A source with the csrc/ headers it includes, recursively, appended."""
+    seen, todo, text = set(), [src], src
+    while todo:
+        for name in re.findall(r'#include "([^"]+)"', todo.pop()):
+            if name not in seen:
+                seen.add(name)
+                header = (build.CSRC / name).read_text()
+                todo.append(header)
+                text += header
+    return text
+
+
 def test_backward_build_targets_hopper():
     lib = build.library_path(port_kernel.BWD_NAME)
     assert lib.parent == build.BUILD_DIR and lib.name.startswith("libfused_qkv_attention_bwd-")
     src = (build.CSRC / f"{port_kernel.BWD_NAME}.cu").read_text()
     assert 'extern "C" int pdm_fused_qkv_attention_bwd' in src and "mma.sync" in src
+    # head dim 64: TMA-fed wgmma kernels, with the products named in the source
+    assert 'extern "C" int pdm_attention_bwd_path' in src
+    for product in ("wgmma_m64n64k16_ss", "wgmma_m64n64k16_rs_tnsp_b", "tma_load_3d",
+                    "setmaxnreg_inc"):
+        assert product in src, product
+    assert "wgmma.mma_async" in _with_headers(src) and "atomicAdd" not in src
+    assert "scaled_dot_product" not in src and "cublas" not in src.lower()

@@ -144,3 +144,24 @@ def _on_meta(t):
 def test_tma_eligibility_of_views(device):
     for name, t, want in _views():
         assert tma_eligible(_on_meta(t) if device == "meta" else t) == want, name
+
+
+def _kernel_views():
+    """The views the wgmma kernels 2 and 3 hand to TMA at the port's real
+    shapes, on meta storage: the ring hop's q = qkv[..., :C] and hop-0
+    kv = qkv[..., C:] of the folded 512-res shards (C = 512), a rotated kv
+    shard, and the backward's packed qkv and cotangent at B = 64, L = 590."""
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    views = []
+    for lq in (1063, 551):
+        qkv = torch.empty((16, lq, 1536), **meta)
+        views += [(f"hop q of (16, {lq}, 1536)", qkv[..., :512]),
+                  (f"hop-0 kv of (16, {lq}, 1536)", qkv[..., 512:])]
+    return views + [("rotated kv (16, 1063, 1024)", torch.empty((16, 1063, 1024), **meta)),
+                    ("backward qkv (64, 590, 1536)", torch.empty((64, 590, 1536), **meta)),
+                    ("backward dO (64, 590, 512)", torch.empty((64, 590, 512), **meta))]
+
+
+@pytest.mark.parametrize("name,view", _kernel_views(), ids=[n for n, _ in _kernel_views()])
+def test_tma_eligibility_of_kernel_views(name, view):
+    assert tma_eligible(view), name

@@ -116,3 +116,9 @@ def test_hop_build_targets_hopper():
     src = (build.CSRC / f"{ring_hop.NAME}.cu").read_text()
     assert 'extern "C" int pdm_ring_hop' in src and "mma.sync" in src
     assert "scaled_dot_product" not in src and "cublas" not in src.lower()
+    # head dim 64: the shared wgmma loop of attention_fwd.cuh in its hop mode
+    assert '#include "attention_fwd.cuh"' in src and "launch_attention_tma<3, true>" in src
+    loop = (build.CSRC / "attention_fwd.cuh").read_text()
+    assert "wgmma_m64n64k16_ss" in loop and "wgmma_m64n64k16_rs_tnsp_b" in loop
+    assert "wgmma.mma_async" in (build.CSRC / "hopper.cuh").read_text()
+    assert "if constexpr (kHop)" in loop
