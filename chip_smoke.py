@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (panoptic and ImageNet-256
-class-conditional), training, sequence-parallel training, (B, H, L, D)
-attention and fused-LayerNorm A/B paths on one NVIDIA H100 and check their
-kernels.
+class-conditional, exact and with the sampling speed modes), its bench,
+training (panoptic and U-ViT-L/2 latent_discrete), sequence-parallel
+training, (B, H, L, D) attention and fused-LayerNorm A/B paths on one NVIDIA
+H100 and check their kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      needs a gradient raises;
      3b. the backward kernel vs `attention_qkv_vjp_plain` and vs
      `attention_qkv_vjp_lse_plain` (its own decomposition) at the training
-     shapes, U-ViT-L/2 / U-ViT-H and two ragged short L (relative deviation
+     shapes (panoptic, and U-ViT-L/2 at batch 64), U-ViT-L/2 / U-ViT-H and
+     two ragged short L (relative deviation
      of dqkv < 5e-3 against each), each shape with the loop it took (wgmma +
      TMA for head dim 64, mma.sync for the others); two calls bit-identical
      (no atomics); timed in turns with SDPA's backward, and both again with
@@ -71,6 +73,13 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      cost of kernel 1's per-launch tensor-map encode for one request;
   6. one more request under torch.profiler: device time by kernel and the
      device's busy share of the request;
+     6a. panoptic speed modes: the same pipeline with sample.accel = 0.2 and
+     sample.cfg_interval = (0.5, 1.0) with the mask-guidance hold (guidance
+     on the early steps); a 20-step request (15 real evals: 5 forecast
+     steps) through the kernel against the plain attention (images < 2e-2,
+     masks < 5e-2), then one 50-step request
+     with exactly (real evals) x 26 kernel-1 launches, printing the guided
+     (2x4) and cond-only (4) batch shapes kernel 1 saw;
      6b. ImageNet-256 serving: GenerationPipeline.from_config(
      "imagenet256_uvit_large"), seeded random weights, bf16 network, f32 VAE;
      a 6-step request of 32 labels through the kernel against the plain
@@ -78,6 +87,17 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      at 50 steps, CFG 0.4: latency, images/s, peak memory, exactly 1050
      kernel-1 launches a request (21 blocks x 50 NFE, CFG as one 2x batch);
      6c. one more ImageNet-256 request under torch.profiler;
+     6d. the recommended mode (tanh GELU on the same weights, sample.accel =
+     0.2): a 50-step request of 32 labels through the kernel against the
+     plain attention on the same draws (images < 2e-2), 20 real evals (the
+     JAX plan's count, held in tests/test_torch_port_speed_modes.py) and
+     exactly 20 x 21 kernel-1 launches a request; 1 warm-up and 3 timed
+     requests beside phase 6b's;
+     6e. the port's bench, `scripts/bench.main` at BENCH_BATCH = 32 and
+     BENCH_REPS = 3 (exact protocol and recommended mode, each through
+     `GenerationPipeline.sample` with a bf16 VAE decode, and the JAX
+     package's gate verdict): its JSON line, exactly 4 x 21 x (50 + 20)
+     kernel-1 launches;
   7. training: `Trainer` for mscoco_uvit_small at full width and depth in
      fine-tune mode (a seeded reference-format `.pth` in a temporary
      directory, so the image stream is frozen) on synthetic coco data at the
@@ -98,8 +118,17 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      images/s, peak memory, finite losses, exactly 52 hop launches a step
      and none of the other kernels;
  13. one more sp step under torch.profiler;
- 14. prints the card line, the `kernels` JSON line (all five kernels) and,
-     last, the ok line.
+ 14. latent_discrete training: `Trainer` for imagenet256_uvit_large
+     (U-ViT-L/2, full width and depth, use_checkpoint with save_attn, bf16
+     autocast over f32 master weights, AdamW + EMA) on synthetic latent
+     moments (32, 32, 8) with labels dropped to the null class 1000 at
+     p_uncond 0.15; one step (batch 16) through the kernels against the
+     plain attention (loss < 5e-3, whole gradient < 2e-2);
+ 15. `Trainer.fit`: 3 warm-up and 20 timed steps at batch 64, exactly 21
+     forward and 21 backward kernel calls a step;
+ 16. one more U-ViT-L/2 step under torch.profiler;
+ 17. prints the bench's JSON line, the card line, the `kernels` JSON line
+     (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
 
@@ -117,8 +146,9 @@ import torch.nn.functional as F
 
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.configs.base import d
+from panopticdiffusionmodels_torch.data.datasets import CFGLabelDataset
 from panopticdiffusionmodels_torch.models import get_nnet
-from panopticdiffusionmodels_torch.models.layers import Attention
+from panopticdiffusionmodels_torch.models.layers import Attention, with_gelu
 from panopticdiffusionmodels_torch.ops.attention import attention_qkv, multi_head_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_attention as fa
@@ -126,7 +156,7 @@ from panopticdiffusionmodels_torch.ops.kernels import fused_ln_qkv_attention as 
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as fqa
 from panopticdiffusionmodels_torch.ops.kernels import ring_hop
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
-from panopticdiffusionmodels_torch.scripts import bench_fused_ln
+from panopticdiffusionmodels_torch.scripts import bench, bench_fused_ln
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
@@ -144,7 +174,10 @@ IMAGENET_SHAPE = KERNEL_SHAPES[6]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
-              (2, 37, 8, 64), (2, 65, 8, 64)]
+              (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64)]
+# U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
+# row IMAGENET_SHAPE) and the backward at this shape.
+LATENT_TRAIN_SHAPE = BWD_SHAPES[6]
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
 # Training: batch of the config, 3 warm-up and 20 timed steps; 13 blocks per
@@ -176,6 +209,22 @@ CHAIN_BATCHES = (32, 64)
 # 32 labels, 21 blocks x 50 NFE kernel-1 launches a request (CFG as one 2x
 # batch of 64).
 IMAGENET_LABELS, IMAGENET_LAUNCHES = 32, 21 * STEPS
+UVIT_L_BLOCKS, UVIT_T2I_BLOCKS = 21, 26
+# Speed modes.  The recommended ImageNet-256 mode (tanh GELU, accel 0.2) runs
+# 20 real evals of 50 (the JAX plan's count); the panoptic request guides the
+# early steps, t in [0.5, 1.0], with the mask-guidance hold.
+RECOMMENDED_EVALS = 20
+PANOPTIC_KNOBS = dict(accel=0.2, cfg_interval=(0.5, 1.0), cfg_interval_mask_hold=True)
+# The panoptic kernel-vs-plain pair runs 20 steps, where these knobs forecast
+# 5 of them (15 real evals): the forecast of the held mask lies inside the
+# compared trajectory.  At 6 steps nothing is skipped.
+PANOPTIC_COMPARE_STEPS = 20
+# The port's bench: BENCH_BATCH 32, BENCH_REPS 3; 1 warm-up + 3 timed runs of
+# the exact protocol (50 evals) and of the recommended mode (20).
+BENCH_ENV = dict(BENCH_BATCH="32", BENCH_REPS="3")
+BENCH_LAUNCHES = (1 + 3) * UVIT_L_BLOCKS * (STEPS + RECOMMENDED_EVALS)
+# U-ViT-L/2 latent_discrete training: batch 64, labels dropped at 0.15.
+LATENT_BATCH, P_UNCOND = 64, 0.15
 
 
 def zero_counts() -> None:
@@ -857,7 +906,122 @@ def phase_imagenet():
     print(f"[6b] ImageNet-256 serving: {json.dumps(result)}")
     device_profile(lambda: pipe.generate(labels=labels[0], steps=STEPS, seed=9), "6c",
                    f"ImageNet-256 request ({IMAGENET_LABELS} labels)", min(latencies))
+    return pipe, counts["fused_attention_qkv"], result
+
+
+def phase_panoptic_speed_modes(pipe, contexts):
+    """The panoptic pipeline with accel 0.2 and the guidance interval (0.5,
+    1.0) with the mask-guidance hold: a 20-step request through the kernel
+    against the plain attention, then a counted 50-step request with the
+    batch shapes each attention saw."""
+    pipe.config.sample.update(PANOPTIC_KNOBS)
+    ctx = torch.as_tensor(contexts, device="cuda")
+    z, m0 = pipe._draw(PER_REQUEST, torch.Generator(device="cuda").manual_seed(11))
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        outs[impl] = pipe.sample(z, m0, ctx, steps=PANOPTIC_COMPARE_STEPS)
+        assert pipe.last_real_evals < PANOPTIC_COMPARE_STEPS, pipe.last_real_evals
+    set_attn_impl(pipe.nnet, "infer")
+    for i, (name, bar) in enumerate((("images", 2e-2), ("mask", 5e-2))):
+        rel = rel_dev(outs["kernel"][i], outs["plain"][i])
+        print(f"[6a] panoptic speed modes {PANOPTIC_KNOBS}, {PANOPTIC_COMPARE_STEPS}-step "
+              f"request ({pipe.last_real_evals} real evals), {name}: kernel vs plain rel "
+              f"{rel:.2e} (bar {bar:.0e})")
+        assert torch.isfinite(outs["kernel"][i]).all() and rel < bar, (name, rel)
+
+    # the (B, L) of every packed qkv the attentions hand to kernel 1
+    seen = set()
+    attns = [m for m in pipe.nnet.modules() if isinstance(m, Attention)]
+    for m in attns:
+        m.attend = (lambda f: lambda qkv: seen.add(tuple(qkv.shape[:2])) or f(qkv))(m.attend)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    images, ids = pipe.generate(contexts=contexts, steps=STEPS, seed=3)
+    latency = time.perf_counter() - t0
+    counts = read_counts()
+    for m in attns:
+        del m.attend
+    evals = pipe.last_real_evals
+    assert 0 < evals < STEPS, evals
+    want = {"fused_attention_qkv": evals * UVIT_T2I_BLOCKS}
+    assert counts == {k: want.get(k, 0) for k in counts}, (counts, evals)
+    assert {b for b, _ in seen} == {2 * PER_REQUEST, PER_REQUEST}, seen
+    assert np.isfinite(images).all() and ids.shape == (PER_REQUEST, 64, 64, 1)
+    print(f"[6a] panoptic 50-step speed-mode request: {evals} real evals of {STEPS}, "
+          f"{counts['fused_attention_qkv']} kernel-1 launches ({evals} x {UVIT_T2I_BLOCKS}), "
+          f"(B, L) kernel 1 saw: guided {sorted(x for x in seen if x[0] == 2 * PER_REQUEST)}, "
+          f"cond-only {sorted(x for x in seen if x[0] == PER_REQUEST)}; latency {latency:.3f} s")
+    pipe.config.sample.update(accel=0.0, cfg_interval=())
     return counts["fused_attention_qkv"]
+
+
+def phase_imagenet_recommended(pipe, exact):
+    """The recommended ImageNet-256 mode on phase 6b's pipeline: tanh GELU on
+    the same weights and accel 0.2; 50-step requests of 32 labels."""
+    pipe.config.sample.accel = bench.RECOMMENDED_KNOBS["accel"]
+    pipe.config.nnet.gelu_approx = True
+    pipe.nnet = with_gelu(pipe.nnet, True)
+    labels = np.random.default_rng(1).integers(0, 1000, size=(REQUESTS + 1, IMAGENET_LABELS))
+    z, _ = pipe._draw(IMAGENET_LABELS, torch.Generator(device="cuda").manual_seed(13))
+    y = torch.as_tensor(labels[0], device="cuda")
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        zero_counts()
+        outs[impl] = pipe.sample(z, None, y, steps=STEPS)[0]
+        assert pipe.last_real_evals == RECOMMENDED_EVALS, pipe.last_real_evals
+        assert fqa.launches == (RECOMMENDED_EVALS * UVIT_L_BLOCKS if impl == "kernel" else 0)
+    set_attn_impl(pipe.nnet, "infer")
+    rel = rel_dev(outs["kernel"], outs["plain"])
+    print(f"[6d] recommended mode ({bench.RECOMMENDED_MODE_NAME}), 50-step request of "
+          f"{IMAGENET_LABELS} labels, images: kernel vs plain rel {rel:.2e} (bar 2e-2), "
+          f"{RECOMMENDED_EVALS} real evals")
+    assert torch.isfinite(outs["kernel"]).all() and rel < 2e-2, rel
+
+    pipe.generate(labels=labels[0], steps=STEPS, seed=98)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    latencies = []
+    for i in range(REQUESTS):
+        t0 = time.perf_counter()
+        images = pipe.generate(labels=labels[i + 1], steps=STEPS, seed=i)
+        latencies.append(time.perf_counter() - t0)
+        assert pipe.last_real_evals == RECOMMENDED_EVALS
+        assert images.shape == (IMAGENET_LABELS, 256, 256, 3) and np.isfinite(images).all()
+    counts = read_counts()
+    want = {"fused_attention_qkv": REQUESTS * RECOMMENDED_EVALS * UVIT_L_BLOCKS}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    result = dict(mode=bench.RECOMMENDED_MODE_NAME, requests=REQUESTS,
+                  labels_per_request=IMAGENET_LABELS, steps=STEPS,
+                  real_evals=RECOMMENDED_EVALS, launches=counts["fused_attention_qkv"],
+                  latency_s=latencies, mean_latency_s=float(np.mean(latencies)),
+                  images_per_s=REQUESTS * IMAGENET_LABELS / sum(latencies),
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[6d] recommended mode: {json.dumps(result)}")
+    print(f"[6d] recommended vs exact (phase 6b): mean latency {result['mean_latency_s']:.3f} "
+          f"vs {exact['mean_latency_s']:.3f} s, {result['images_per_s']:.2f} vs "
+          f"{exact['images_per_s']:.2f} images/s, peak {result['max_memory_allocated_gb']:.2f} "
+          f"vs {exact['max_memory_allocated_gb']:.2f} GB")
+    return counts["fused_attention_qkv"]
+
+
+def phase_bench():
+    """The port's bench through its `main` at batch 32, 3 repetitions."""
+    os.environ.update(BENCH_ENV)
+    zero_counts()
+    t0 = time.perf_counter()
+    record = bench.main()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"fused_attention_qkv": BENCH_LAUNCHES}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert record["value"] > 0 and record["recommended_value"] > 0, record
+    print(f"[6e] port bench (bf16 VAE decode): {counts['fused_attention_qkv']} kernel-1 launches, "
+          f"{wall:.1f} s including the build of its components")
+    return record, counts["fused_attention_qkv"]
 
 
 def write_pretrained(path: str, config) -> None:
@@ -874,25 +1038,29 @@ def grads_vector(trainer) -> torch.Tensor:
     return torch.cat([p.grad.flatten().float() for p in trainer.state.params.values()])
 
 
+def train_loss(metrics) -> float:
+    return float(metrics["loss"] + metrics.get("loss_mask", 0.0))
+
+
 def phase_train_parity(trainer, batch_size, impls, tag):
     """One step through the kernels (impls[0]) and through the plain
     attention (impls[1]), same weights, batch and draws."""
     rng = np.random.default_rng(0)
-    moments, context, ids = (np.stack(f) for f in zip(*(
+    batch = tuple(np.stack(f) for f in zip(*(
         trainer.dataset.train[i] for i in range(batch_size))))
-    batch = (moments, context, ids)
-    h, w, c2 = moments.shape[1:]
-    m = trainer.config.nnet.mask_size
+    h, w, c2 = batch[0].shape[1:]
     noise = {"z": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
              "n": rng.integers(1, 1001, batch_size),
-             "eps": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
-             "eps_m": 2.0 * rng.standard_normal(
-                 (batch_size, m, m, trainer.config.nnet.mask_bits)).astype(np.float32)}
+             "eps": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32)}
+    if trainer.task == "t2i_discrete":
+        m = trainer.config.nnet.mask_size
+        noise["eps_m"] = 2.0 * rng.standard_normal(
+            (batch_size, m, m, trainer.config.nnet.mask_bits)).astype(np.float32)
     out = {}
     for impl in impls:
         set_attn_impl(trainer.nnet, impl)
         metrics = trainer.loss_and_grads(batch, noise)
-        out[impl] = (float(metrics["loss"] + metrics["loss_mask"]), grads_vector(trainer))
+        out[impl] = (train_loss(metrics), grads_vector(trainer))
     set_attn_impl(trainer.nnet, impls[0])
     for p in trainer.state.params.values():
         p.grad = None
@@ -912,7 +1080,7 @@ def phase_train(trainer, tag, per_step):
     kernel must make a step (the others must make none)."""
     bsz = trainer.config.train.batch_size
     frozen = {n: trainer.state.params[n].detach().clone() for n in sorted(trainer.state.frozen)}
-    assert frozen, "fine-tune mode froze nothing"
+    assert frozen or not trainer.config.pretrained, "fine-tune mode froze nothing"
     trainer.fit(max_steps=WARMUP_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -924,7 +1092,7 @@ def phase_train(trainer, tag, per_step):
     counts = read_counts()
     assert trainer.state.step == WARMUP_STEPS + TIMED_STEPS, trainer.state.step
     assert counts == {k: per_step.get(k, 0) * TIMED_STEPS for k in counts}, counts
-    losses = [m["loss"] + m["loss_mask"] for m in history]
+    losses = [train_loss(m) for m in history]
     assert losses and np.isfinite(losses).all(), losses
     assert all(torch.isfinite(p).all() for p in trainer.state.params.values())
     assert all(torch.equal(trainer.state.params[n], p) for n, p in frozen.items())
@@ -963,6 +1131,25 @@ def make_trainer(name, tmp, mesh=None):
     return Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
 
 
+def make_latent_trainer(tmp):
+    """`Trainer` for imagenet256_uvit_large (latent_discrete, U-ViT-L/2 at
+    full width and depth, from the seeded initialisation) at batch 64 on
+    synthetic latent moments (32, 32, 8) with labels in [0, 1000): the null
+    class 1000 replaces a label at p_uncond 0.15, as the config's dataset
+    does."""
+    config = get_config("imagenet256_uvit_large")
+    h, w, c = config.z_shape
+    config.dataset = d(name="synthetic", style="imagenet", n=4 * LATENT_BATCH,
+                       z_shape=(h, w, 2 * c), num_classes=1000)
+    config.train.batch_size = LATENT_BATCH
+    config.train.log_interval = 5
+    config.num_workers = 4
+    trainer = Trainer(config, os.path.join(tmp, "run_imagenet256_uvit_large"), device="cuda")
+    trainer.dataset.train = CFGLabelDataset(trainer.dataset.train, P_UNCOND, 1000)
+    assert trainer.config.nnet.use_checkpoint and trainer.config.nnet.remat_policy == "save_attn"
+    return trainer
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -981,8 +1168,13 @@ def main() -> int:
     phase_ring_forward(gen)
     pipe, contexts, launches, latency = phase_serving()
     phase_profile(pipe, contexts, latency)
+    panoptic_speed_launches = phase_panoptic_speed_modes(pipe, contexts)
     del pipe
-    imagenet_launches = phase_imagenet()
+    pipe, imagenet_launches, imagenet_result = phase_imagenet()
+    recommended_launches = phase_imagenet_recommended(pipe, imagenet_result)
+    del pipe
+    torch.cuda.empty_cache()
+    bench_record, bench_launches = phase_bench()
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1003,6 +1195,15 @@ def main() -> int:
                                            {"attention_hop": HOP_LAUNCHES_PER_STEP})
         phase_train_profile(sp_trainer, sp_step_s, "13")
         del sp_trainer
+        torch.cuda.empty_cache()
+
+        latent_trainer = make_latent_trainer(tmp)
+        phase_train_parity(latent_trainer, PARITY_BATCH, ("auto", "plain"), "14")
+        latent_counts, latent_step_s = phase_train(
+            latent_trainer, "15", {"fused_attention_qkv": UVIT_L_BLOCKS,
+                                   "fused_attention_qkv_vjp": UVIT_L_BLOCKS})
+        phase_train_profile(latent_trainer, latent_step_s, "16")
+        del latent_trainer
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -1018,6 +1219,11 @@ def main() -> int:
                           f"training ({TIMED_STEPS} steps)": fwd_train,
                           f"sp training ({TIMED_STEPS} steps)": sp_counts["fused_attention_qkv"],
                           "ImageNet-256 serving (3 requests)": imagenet_launches,
+                          "ImageNet-256 recommended mode (3 requests)": recommended_launches,
+                          "panoptic speed-mode request (50 steps)": panoptic_speed_launches,
+                          f"U-ViT-L/2 latent_discrete training ({TIMED_STEPS} steps)":
+                              latent_counts["fused_attention_qkv"],
+                          "port bench (exact and recommended, 4 runs each)": bench_launches,
                           "A/B chain, shipped and fused arms (B=32, 64)":
                               chain_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -1037,13 +1243,16 @@ def main() -> int:
         source="panopticdiffusionmodels_torch/ops/kernels/csrc/fused_qkv_attention_bwd.cu",
         replaces="panopticdiffusionmodels_tpu/ops/pallas/fused_qkv_attention.py:226",
         launches=bwd_train,
-        launches_by_path={f"training ({TIMED_STEPS} steps)": bwd_train},
+        launches_by_path={f"training ({TIMED_STEPS} steps)": bwd_train,
+                          f"U-ViT-L/2 latent_discrete training ({TIMED_STEPS} steps)":
+                              latent_counts["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in train_rows) else "operations",
         per="one call at L=334 plus one at L=590 (B=64, H=8, D=64), the pair each "
-            "dual-stream layer runs per train step; one call is two CUDA kernels",
+            "dual-stream layer runs per train step; one call is two CUDA kernels; the "
+            f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}",
         shapes=bwd_rows)
     hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
     per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",
@@ -1096,6 +1305,7 @@ def main() -> int:
         gemm_half=ln_main["gemm_half"],
         chain={str(b): r for b, r in chain.items()},
         shapes=ln_rows)
+    print(json.dumps(bench_record))
     print(card_line())
     print(json.dumps({"kernels": [kernel, backward, hop, mha, ln]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 import importlib
 
 CONFIG_NAMES = ["imagenet256_uvit_large", "mscoco_uvit_small", "mscoco_uvit_small_512",
-                "synthetic_tiny"]
+                "synthetic_tiny", "synthetic_tiny_cond"]
 
 
 def get_config(name: str):

@@ -1,13 +1,16 @@
-"""Datasets of the training slice: MS-COCO pre-encoded features with panoptic
-maps, and synthetic data of the same shapes.
+"""Datasets of the training slices: MS-COCO pre-encoded features with panoptic
+maps, ImageNet pre-encoded features with labels, and synthetic data of the
+same shapes.
 
 A numpy-only copy of the parts of `panopticdiffusionmodels_tpu/data/datasets.py`
-that `t2i_discrete` training reads.  Samples are numpy arrays, channel-last
-like the JAX package's: moments (h, w, 2C) f32, context (77, clip_dim) f32,
-panoptic ids (H, W, 1) int32.  The feature files are those of the reference
-extraction scripts (`{i}.npy` moments (2C, h, w), `{i}_{k}.npy` CLIP
-contexts, `{i}_seg.npy` seg maps; reference `datasets.py:564-613`), so the
-same directory trains either package.
+that `t2i_discrete` and `latent_discrete` training read.  Samples are numpy
+arrays, channel-last like the JAX package's: moments (h, w, 2C) f32, context
+(77, clip_dim) f32, panoptic ids (H, W, 1) int32, labels int.  The feature
+files are those of the reference extraction scripts (COCO: `{i}.npy` moments
+(2C, h, w), `{i}_{k}.npy` CLIP contexts, `{i}_seg.npy` seg maps, reference
+`datasets.py:564-613`; ImageNet: `{i}.npy` a pickled (moments (2C, h, w),
+label) pair, reference `datasets.py:187-198`), so the same directory trains
+either package.
 """
 from __future__ import annotations
 
@@ -122,6 +125,75 @@ class MSCOCO256Features(DatasetFactory):
             self.train = train
 
 
+class FeatureDataset:
+    """ImageNet latent-moment features: each `{i}.npy` pickles a (moments CHW,
+    label) pair, flip-augmented to 2x the raw image count by the extraction
+    (reference `datasets.py:187-198`).  Returns (moments HWC f32, int label)."""
+
+    def __init__(self, path: str, n: Optional[int] = None):
+        self.path = path
+        if n is None:
+            n = len([name for name in os.listdir(path) if name.endswith(".npy")])
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        z, label = np.load(os.path.join(self.path, f"{idx}.npy"), allow_pickle=True)
+        z = np.asarray(z, dtype=np.float32)
+        return np.ascontiguousarray(z.transpose(1, 2, 0)), int(label)
+
+
+class CFGLabelDataset:
+    """Label-null CFG dropout for class-conditional models (reference
+    `datasets.py:45-58`): the label becomes `null_label` where a uniform draw
+    is < p_uncond, the JAX package's rule.  The JAX package draws from the
+    global `random` module; here the draw of `item` in epoch e comes from
+    `random.Random` seeded by (seed, e, item), which `Loader` sets through
+    `set_epoch`, so it is reproducible from the loader's seed whatever order
+    the loader's threads read the items in, and a resumed run draws what the
+    uninterrupted one drew."""
+
+    def __init__(self, dataset, p_uncond: float, null_label: int):
+        self.dataset = dataset
+        self.p_uncond = p_uncond
+        self.null_label = null_label
+        self.seed, self.epoch = 0, 0
+
+    def set_epoch(self, epoch: int, seed: int) -> None:
+        self.seed, self.epoch = seed, epoch
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, item):
+        x, y = self.dataset[item]
+        if random.Random(f"{self.seed}:{self.epoch}:{item}").random() < self.p_uncond:
+            y = self.null_label
+        return x, y
+
+
+class ImageNetFeatures(DatasetFactory):
+    """imagenet256_features / imagenet512_features (reference
+    `datasets.py:187-250`): label K = 1000 is the null class of
+    class-conditional CFG (reference `eval.py:43-46`, num_classes 1001)."""
+
+    def __init__(self, path: str, cfg: bool = False, p_uncond: Optional[float] = None,
+                 resolution: int = 256):
+        super().__init__()
+        self.resolution = resolution
+        train = FeatureDataset(path)
+        self.K = 1000
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("imagenet features: cfg=True needs p_uncond")
+            self.train = CFGLabelDataset(train, p_uncond, self.K)
+        else:
+            self.train = train
+        self.test = train
+
+
 class SyntheticDataset:
     """Seeded numpy fields: normal f32, or ids in [0, 200] for `int_fields`."""
 
@@ -143,31 +215,55 @@ class SyntheticDataset:
         return vals if len(vals) > 1 else vals[0]
 
 
+class SyntheticLabeled:
+    """Seeded (array, int label) pairs for class-conditional tasks: the same
+    arrays as the JAX package's for the same seed."""
+
+    def __init__(self, shape, n: int, num_classes: int, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.x = rng.normal(size=(n, *shape)).astype(np.float32)
+        self.y = rng.integers(0, num_classes, n).astype(np.int32)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, item):
+        return self.x[item], int(self.y[item])
+
+
 class Synthetic(DatasetFactory):
-    """Synthetic (moments, context[, panoptic]) data: the same arrays as the JAX
-    package's `Synthetic(style='coco')` for the same seed.  Its other styles
-    come with the slices of their tasks."""
+    """Synthetic data of a task's shapes, the same arrays as the JAX package's
+    `Synthetic` for the same seed: `style` 'coco' (moments, context[,
+    panoptic]), 'imagenet' (moments, label) or 'pixels' (image, label), labels
+    in [0, num_classes)."""
 
     def __init__(self, n: int = 256, z_shape=(32, 32, 8), clip_shape=(77, 768),
-                 mask_size: int = 64, panoptic: bool = True, seed: int = 0):
+                 mask_size: int = 64, panoptic: bool = True, seed: int = 0,
+                 style: str = "coco", num_classes: int = 10):
         super().__init__()
-        shapes, int_fields = [z_shape, clip_shape], ()
-        if panoptic:
-            shapes.append((mask_size, mask_size, 1))
-            int_fields = (2,)
-        self.train = SyntheticDataset(shapes, n=n, seed=seed, int_fields=int_fields)
+        if style == "coco":
+            shapes, int_fields = [z_shape, clip_shape], ()
+            if panoptic:
+                shapes.append((mask_size, mask_size, 1))
+                int_fields = (2,)
+            self.train = SyntheticDataset(shapes, n=n, seed=seed, int_fields=int_fields)
+            self.empty_context = np.zeros(clip_shape, dtype=np.float32)
+        elif style in ("imagenet", "pixels"):
+            self.train = SyntheticLabeled(z_shape, n, num_classes, seed=seed)
+        else:
+            raise ValueError(style)
         self.test = self.train
-        self.empty_context = np.zeros(clip_shape, dtype=np.float32)
 
 
 def get_dataset(name: str, **kwargs) -> DatasetFactory:
     """Factory over a config's `dataset` fields (reference `datasets.py:655-669`)."""
     if name == "mscoco256_features":
         return MSCOCO256Features(**kwargs)
+    if name in ("imagenet256_features", "imagenet512_features"):
+        return ImageNetFeatures(resolution=256 if "256" in name else 512, **kwargs)
     if name == "synthetic":
         return Synthetic(**kwargs)
-    if name in ("cifar10", "celeba", "imagenet", "imagenet256_features",
-                "imagenet512_features"):
+    if name in ("cifar10", "celeba", "imagenet"):
         raise NotImplementedError(
-            f"dataset {name!r} comes with the slice of its task (pixel / class-conditional)")
+            f"dataset {name!r} comes with the slice of its task (pixel space)")
     raise NotImplementedError(name)

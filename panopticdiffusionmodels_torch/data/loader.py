@@ -40,12 +40,20 @@ class Loader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers > 0 else None
+        self.seed = seed
         self.rng = random.Random(seed)
+        self._epochs = 0  # epochs whose order has been drawn
         self._pending: tuple = ()  # (epoch indices, start batch) set by skip()
 
     def _epoch_indices(self):
+        """The next epoch's order; a dataset with `set_epoch` (per-epoch
+        random draws, e.g. `CFGLabelDataset`) is told its epoch and seed."""
         idx = list(range(len(self.dataset)))
         self.rng.shuffle(idx)
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(self._epochs, self.seed)
+        self._epochs += 1
         return idx
 
     def _n_batches(self, idx) -> int:

@@ -8,6 +8,7 @@ while LayerNorm statistics and the attention softmax stay in f32.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -99,6 +100,16 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+def with_gelu(model: nn.Module, approx: bool) -> nn.Module:
+    """A copy of `model` that shares its parameters and buffers and computes
+    tanh GELU (approx) or erf GELU, as the JAX `model.clone(gelu_approx=...)`."""
+    clone = copy.deepcopy(model, memo={id(t): t for t in (*model.parameters(), *model.buffers())})
+    for m in clone.modules():
+        if isinstance(m, Mlp):
+            m.approximate = "tanh" if approx else "none"
+    return clone
 
 
 class Attention(nn.Module):

@@ -15,11 +15,15 @@ Port of the t2i / panoptic and the class-conditional DPM-Solver branches of
 A request runs 50-NFE order-3 DPM-Solver++ ('fast'), mask-aware for the
 panoptic model, with CFG as one 2x-batch forward per NFE (the empty context,
 or the null class num_classes - 1), then the KL-VAE decode and, for the
-panoptic model, the analog-bit -> panoptic-id decode.  Entry points run on
-the card unless the caller passes `device="cpu"`.  The network computes in
+panoptic model, the analog-bit -> panoptic-id decode.  The config's opt-in
+speed modes (`sample.accel`, `sample.cfg_interval` with the mask-guidance
+hold `sample.cfg_interval_mask_hold`, `nnet.gelu_approx`) are checked
+against `samplers/speed_budget.py` once per distinct set of knobs.  Entry
+points run on the card unless the caller passes `device="cpu"`.  The network computes in
 `config.compute_dtype` (bf16: GEMMs in bf16 with f32 accumulation; norms,
-softmax and the solver state in f32); the VAE runs in f32, as in the JAX
-package.
+softmax and the solver state in f32); the VAE keeps its parameters in f32
+and computes in its own dtype: f32 from `from_config`, as in the JAX
+package (the port's bench passes a bf16 one).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from .models import get_nnet
 from .models.vae import get_model as get_vae
 from .samplers.dpm_solver import DPMSolver
 from .samplers.noise_schedule import NoiseScheduleVP
+from .samplers.speed_budget import check_speed_modes
 from .utils.weights import load_torch_state_dict, reference_nnet_state_dict
 
 log = logging.getLogger(__name__)
@@ -77,6 +82,8 @@ class GenerationPipeline:
         self.N = Schedule(betas).N
         self.ns = NoiseScheduleVP("discrete", betas=betas)
         self.panoptic = not self.class_cond and bool(config.nnet.get("enable_panoptic", True))
+        self._checked_knobs = set()  # speed-mode knob sets already checked
+        self.last_real_evals = 0  # network evals of the last request's solver
         self.empty_context = None  # the unconditional CLIP context of a t2i model
         if not self.class_cond:
             if empty_context is None:
@@ -133,28 +140,41 @@ class GenerationPipeline:
         class-conditional model, the labels (n,).  Returns (decoded images
         (n, 3, H, W) or latents without a VAE, pred_mask or None)."""
         steps = steps or self.config.sample.sample_steps
-        scale = float(self.config.sample.get("scale", 0.0))
-        enabled = bool(self.config.sample.get("cfg", False))
+        sample_cfg = self.config.sample
+        scale = float(sample_cfg.get("scale", 0.0))
+        enabled = bool(sample_cfg.get("cfg", False))
+        accel_tau = float(sample_cfg.get("accel", 0.0))
+        cfg_interval = tuple(sample_cfg.get("cfg_interval", ())) or None
+        # The hold only has something to hold on a guided panoptic request
+        # (JAX `serving.py:315-318`).
+        hold = bool(cfg_interval and self.panoptic and enabled and scale
+                    and sample_cfg.get("cfg_interval_mask_hold", True))
+        knobs = (scale, enabled, accel_tau, cfg_interval, hold,
+                 bool(self.config.nnet.get("gelu_approx", False)))
+        if knobs not in self._checked_knobs:
+            # once per distinct set of knobs, as JAX once per compiled program
+            check_speed_modes(self.config)
+            self._checked_knobs.add(knobs)
         if self.class_cond:
             cfg_fn = make_cfg_class_cond(lambda xx, tt, yy: self.nnet(xx, tt, yy),
                                          null_label=self.config.nnet.num_classes - 1,
                                          scale=scale, enabled=enabled)
 
-            def model_fn(xx, tt, mask_token=None):
-                return cfg_fn(xx, tt * self.N, cond)
+            def model_fn(xx, tt, mask_token=None, cfg_on=True):
+                return cfg_fn(xx, tt * self.N, cond, cfg_on=cfg_on)
         else:
             cfg_fn = make_cfg_t2i(
                 lambda xx, tt, cc, mask_token=None: self.nnet(xx, tt, cc, mask_token=mask_token),
                 self.empty_context, scale=scale, enabled=enabled)
 
-            def model_fn(xx, tt, mask_token=None):
-                return cfg_fn(xx, tt * self.N, cond, mask_token=mask_token)
-        solver = DPMSolver(
-            model_fn, self.ns, predict_x0=True,
-            accel_tau=float(self.config.sample.get("accel", 0.0)),
-            cfg_interval=tuple(self.config.sample.get("cfg_interval", ())) or None)
+            def model_fn(xx, tt, mask_token=None, cfg_on=True, **mkw):
+                return cfg_fn(xx, tt * self.N, cond, mask_token=mask_token, cfg_on=cfg_on,
+                              **mkw)
+        solver = DPMSolver(model_fn, self.ns, predict_x0=True, accel_tau=accel_tau,
+                           cfg_interval=cfg_interval, mask_guidance_hold=hold)
         out = solver.sample(z, steps=steps, eps=1.0 / self.N, T=1.0, order=3,
                             method="fast", mask_token=m0)
+        self.last_real_evals = solver.real_evals
         z0, pred_mask = out if m0 is not None else (out, None)
         if self.vae is not None:
             z0 = self.vae.decode(z0)

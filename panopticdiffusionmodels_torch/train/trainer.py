@@ -1,7 +1,9 @@
-"""The training engine of the port: task `t2i_discrete` on one device.
+"""The training engine of the port: tasks `t2i_discrete` and `latent_discrete`.
 
 Port of `panopticdiffusionmodels_tpu/train/trainer.py::Trainer` for the
-panoptic text-to-image task (reference `train_t2i_discrete.py`):
+panoptic text-to-image task (reference `train_t2i_discrete.py`) and the
+class-conditional latent task of U-ViT on ImageNet features (reference
+`train_ldm_discrete.py`):
 
   * the model is built with `attn_impl='auto'` (the attention kernels'
     forward and backward on the card) and the config's `use_checkpoint` /
@@ -9,7 +11,8 @@ panoptic text-to-image task (reference `train_t2i_discrete.py`):
     `compute_dtype='bfloat16'` runs the forward and backward under
     `torch.autocast` (GEMMs in bf16; LayerNorm, softmax and the loss in f32);
   * one `train_step(batch)` = the loss of `_loss` (the VAE reparameterised
-    draw from the moments, then `l_simple_panoptic`), its gradients
+    draw from the moments, then `l_simple_panoptic`, or `l_simple` with the
+    labels for `latent_discrete`), its gradients
     (optionally over `grad_accum` micro-batches), the global gradient norm,
     AdamW and the EMA (`train/state.py`);
   * `fit` keeps a bounded queue of in-flight steps and reads a step's loss
@@ -28,9 +31,11 @@ panoptic text-to-image task (reference `train_t2i_discrete.py`):
     checkpoints and metrics.
 
 Batches are channel-last numpy arrays as the JAX package's (moments
-(B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1)); the trainer
+(B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1); or moments and
+labels (B,)); the trainer
 transposes to the network's NCHW at the model boundary only.  Every random
-draw of a step (the VAE noise `z`, the timesteps `n`, `eps`, `eps_m`) can be
+draw of a step (the VAE noise `z`, the timesteps `n`, `eps`, `eps_m`; the
+last only for the panoptic task) can be
 passed in through `noise`, so a test can hand the JAX trainer's draws to
 both sides; otherwise they come from the trainer's `torch.Generator`,
 reseeded before every step from (`config.seed`, step) as the JAX trainer
@@ -50,7 +55,12 @@ import numpy as np
 import torch
 
 from ..data import Loader, get_dataset, prefetch_to_device
-from ..diffusion.schedule import Schedule, l_simple_panoptic, stable_diffusion_beta_schedule
+from ..diffusion.schedule import (
+    Schedule,
+    l_simple,
+    l_simple_panoptic,
+    stable_diffusion_beta_schedule,
+)
 from ..models import get_nnet
 from ..models.vae import sample_from_moments
 from ..parallel.mesh import from_mesh
@@ -71,15 +81,30 @@ def step_seed(seed: int, step: int) -> int:
 
 def _check_supported(config) -> None:
     task = config.get("task", "")
-    if task != "t2i_discrete":
+    if task == "t2i_discrete":
+        if config.nnet.name != "uvit_t2i":
+            raise NotImplementedError(f"training nnet {config.nnet.name!r} comes with a later "
+                                      "slice")
+        if not config.nnet.get("enable_panoptic", True):
+            raise NotImplementedError("image-only t2i training (l_simple) comes with a later "
+                                      "slice")
+    elif task == "latent_discrete":
+        if config.nnet.name != "uvit" or config.nnet.get("num_classes", -1) <= 0:
+            raise NotImplementedError(
+                f"latent_discrete training of nnet {config.nnet.name!r} (num_classes="
+                f"{config.nnet.get('num_classes')}): the port trains the class-conditional "
+                "uvit; the others come with a later slice")
+        if config.train.get("mode", "cond") != "cond":
+            raise NotImplementedError("latent_discrete with train.mode != 'cond' comes with "
+                                      "a later slice")
+        if config.get("mesh", {}).get("sp", 1) != 1:
+            raise NotImplementedError("sequence-parallel uvit training comes with the "
+                                      "distributed slice")
+    else:
         raise NotImplementedError(
-            f"task {task!r} is not ported yet: the port trains t2i_discrete; "
-            "pixel_sde / latent_sde / latent_discrete come with their own slices, "
-            "in a later PR")
-    if config.nnet.name != "uvit_t2i":
-        raise NotImplementedError(f"training nnet {config.nnet.name!r} comes with a later slice")
-    if not config.nnet.get("enable_panoptic", True):
-        raise NotImplementedError("image-only t2i training (l_simple) comes with a later slice")
+            f"task {task!r} is not ported yet: the port trains t2i_discrete and "
+            "latent_discrete; pixel_sde / latent_sde come with their own slice of the "
+            "port")
     mesh = config.get("mesh", {})
     dp = mesh.get("dp", -1)
     if dp not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in ("fsdp", "tp")):
@@ -98,6 +123,7 @@ class Trainer:
     def __init__(self, config, workdir: Optional[str] = None, device="cuda"):
         _check_supported(config)
         self.config = config
+        self.task = config.task
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): no CUDA device; pass device='cpu'")
@@ -133,7 +159,9 @@ class Trainer:
                 raise FileNotFoundError(f"config.pretrained={pretrained!r} does not exist")
             self.nnet.load_state_dict(
                 reference_nnet_state_dict(load_torch_state_dict(pretrained)), strict=True)
-            frozen = panoptic_image_stream_frozen(n for n, _ in self.nnet.named_parameters())
+            if self.task == "t2i_discrete":  # a class-conditional fine-tune freezes nothing
+                frozen = panoptic_image_stream_frozen(
+                    n for n, _ in self.nnet.named_parameters())
         self.nnet.to(self.device)
 
         lr_sched = make_lr_schedule(
@@ -163,13 +191,30 @@ class Trainer:
 
         return fn
 
+    def _label_nnet_fn(self, y):
+        """(xn, t) on channel-last tensors -> eps_pred channel-last, through
+        the NCHW class-conditional network with labels y."""
+
+        def fn(xn, t):
+            with torch.autocast(self.device.type, dtype=self.compute_dtype,
+                                enabled=self.compute_dtype != torch.float32):
+                eps = self.nnet(xn.permute(0, 3, 1, 2), t, y)
+            return eps.permute(0, 2, 3, 1)
+
+        return fn
+
     def _loss(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None):
         """(scalar loss, metrics) of one (micro-)batch: JAX `Trainer._loss`,
-        t2i_discrete branch."""
+        t2i_discrete and latent_discrete branches."""
         noise = noise or {}
-        moments, context = batch[0].float(), batch[1]
+        moments = batch[0].float()
         z = sample_from_moments(moments, self.config.autoencoder.scale_factor,
                                 noise=noise.get("z"), generator=self.generator)
+        if self.task == "latent_discrete":
+            loss = l_simple(z, self._label_nnet_fn(batch[1]), self.schedule,
+                            n=noise.get("n"), eps=noise.get("eps"), generator=self.generator)
+            return loss.mean(), {"loss": loss.mean().detach()}
+        context = batch[1]
         use_gt = bool(self.config.nnet.get("use_ground_truth", False))
         loss_eps, loss_mask = l_simple_panoptic(
             z, self._nnet_fn(context), self.schedule, batch[2],
@@ -233,7 +278,8 @@ class Trainer:
     def data_stream(self, start_step: int = 0):
         """Batches on the trainer's device from step `start_step` on: the
         loader's index-only skip, then the device feed (uint8 panoptic ids by
-        default, optional bf16 float fields, `train.transfer_dtype`)."""
+        default, labels as they are, optional bf16 float fields,
+        `train.transfer_dtype`)."""
         cfgt = self.config.train
         cast_f32 = torch.bfloat16 if cfgt.get("transfer_dtype", "") == "bfloat16" else None
         cast_int = (np.uint8 if self.config.nnet.get("enable_panoptic", False)

@@ -97,7 +97,7 @@ def test_coco_factory_equals_jax(tmp_path):
 
 def test_other_datasets_name_their_slice():
     with pytest.raises(NotImplementedError, match="slice"):
-        get_dataset("imagenet256_features", path="x")
+        get_dataset("cifar10", path="x")
 
 
 def test_loader_refuses_a_dataset_smaller_than_a_batch():

@@ -128,8 +128,11 @@ def test_uvit_t2i_cfg_trajectory_matches_jax():
                                rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("kwargs", [dict(accel_tau=0.2), dict(cfg_interval=(0.0, 0.5)),
+@pytest.mark.parametrize("kwargs", [dict(method="singlestep"), dict(method="multistep"),
                                     dict(predict_x0=False)])
 def test_later_slice_modes_raise(kwargs):
+    kwargs = dict(kwargs)
+    method = kwargs.pop("method", "fast")
     with pytest.raises(NotImplementedError, match="slice"):
-        DPMSolver(None, NoiseScheduleVP("discrete", betas=BETAS), **kwargs)
+        DPMSolver(lambda x, t: x, NoiseScheduleVP("discrete", betas=BETAS), **kwargs).sample(
+            torch.zeros((1, 4, 2, 2)), steps=3, method=method)

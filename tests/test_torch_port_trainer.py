@@ -120,7 +120,7 @@ def test_missing_pretrained_raises(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("task", "latent_discrete", "slice"),
+    ("task", "pixel_sde", "slice"),
     ("mesh.tp", 2, "distributed"),
     ("mesh.pp", 2, "distributed"),
     ("nnet.remat_policy", "dots", "later PR"),

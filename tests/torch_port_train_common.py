@@ -106,8 +106,9 @@ def port_step(trainer: Trainer, batch, draws) -> dict:
                 ema={n: e.clone() for n, e in trainer.state.ema.items()})
 
 
-def assert_step_matches(ours: dict, ref: dict, rtol=1e-4, atol=1e-6):
-    for k in ("loss", "loss_mask", "grad_norm"):
+def assert_step_matches(ours: dict, ref: dict, rtol=1e-4, atol=1e-6,
+                        keys=("loss", "loss_mask", "grad_norm")):
+    for k in keys:
         np.testing.assert_allclose(ours["metrics"][k], ref["metrics"][k], rtol=rtol, atol=atol,
                                    err_msg=k)
     for part in ("grads", "params", "ema") if "grads" in ref else ("params", "ema"):
