@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (panoptic and ImageNet-256
-class-conditional, exact and with the sampling speed modes), its bench,
-training (panoptic and U-ViT-L/2 latent_discrete), sequence-parallel
-training, (B, H, L, D) attention and fused-LayerNorm A/B paths on one NVIDIA
-H100 and check their kernels.
+class-conditional, exact and with the sampling speed modes; pixel-space
+ImageNet-64 class-conditional and CIFAR-10 unconditional), its bench,
+training (panoptic, U-ViT-L/2 latent_discrete and CIFAR-10 pixel_sde),
+sequence-parallel training, (B, H, L, D) attention and fused-LayerNorm A/B
+paths on one NVIDIA H100 and check their kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -15,8 +16,11 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      arguments), and the dynamic shared memory of the wgmma attention loop,
      the wgmma backward kernels and the LN-prologue GEMM;
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
-     and training shapes (relative deviation < 5e-3), each shape with the
-     loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
+     and training shapes, the pixel-space ones among them (U-ViT-M/4 at
+     (64, 258, 12, 64), U-ViT-S/2 at (32, 257, 8, 64) and, with lse, at
+     (128, 257, 8, 64)) (relative deviation < 5e-3, and where L is not a
+     whole number of 64-row tiles the tail rows on their own: < 5e-3, lse
+     < 1e-4), each shape with the loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
      timed in turns with `scaled_dot_product_attention`, its yardstick
      (library, kernel, kernel, library, 5 times: medians and spreads), and
      beside the plain version; the forward with its lse output is
@@ -25,9 +29,10 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      needs a gradient raises;
      3b. the backward kernel vs `attention_qkv_vjp_plain` and vs
      `attention_qkv_vjp_lse_plain` (its own decomposition) at the training
-     shapes (panoptic, and U-ViT-L/2 at batch 64), U-ViT-L/2 / U-ViT-H and
-     two ragged short L (relative deviation
-     of dqkv < 5e-3 against each), each shape with the loop it took (wgmma +
+     shapes (panoptic, U-ViT-L/2 at batch 64 and U-ViT-S/2 at (128, 257, 8,
+     64)), U-ViT-L/2 / U-ViT-H and two ragged short L (relative deviation
+     of dqkv < 5e-3 against each, the tail rows past the last whole tile
+     < 5e-3 on their own), each shape with the loop it took (wgmma +
      TMA for head dim 64, mma.sync for the others); two calls bit-identical
      (no atomics); timed in turns with SDPA's backward, and both again with
      the L2 flushed (64 MB) before every launch; beside the plain version;
@@ -98,6 +103,22 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      `GenerationPipeline.sample` with a bf16 VAE decode, and the JAX
      package's gate verdict): its JSON line, exactly 4 x 21 x (50 + 20)
      kernel-1 launches;
+     6f. ImageNet-64 pixel-space serving: GenerationPipeline.from_config(
+     "imagenet64_uvit_mid") (U-ViT-M/4, 17 blocks, 12 heads, L = 258),
+     seeded random weights, bf16 network, the config's protocol (continuous
+     DPM-Solver fast_upstream, noise prediction, 50 evals, no CFG, no VAE);
+     a 10-step request of 64 labels through the kernel against the plain
+     attention (images < 2e-2); 1 warm-up and 3 requests of 64 labels at 50
+     steps: latency, images/s, peak memory, exactly 850 kernel-1 launches a
+     request; one request under torch.profiler;
+     6g. CIFAR-10 pixel-space serving: GenerationPipeline.from_config(
+     "cifar10_uvit_small") (U-ViT-S/2, 13 blocks, L = 257, unconditional),
+     1000-step Euler-Maruyama on the reverse SDE; a 20-step request of 32
+     through the kernel against the plain attention on the same draws and
+     step noise (images < 2e-2); after a 10-step warm-up, one timed request
+     of 32 at 1000 steps with exactly 13,000 kernel-1 launches; the device's
+     idle share from a 100-step request under torch.profiler beside the
+     same request without it;
   7. training: `Trainer` for mscoco_uvit_small at full width and depth in
      fine-tune mode (a seeded reference-format `.pth` in a temporary
      directory, so the image stream is frozen) on synthetic coco data at the
@@ -127,7 +148,15 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
  15. `Trainer.fit`: 3 warm-up and 20 timed steps at batch 64, exactly 21
      forward and 21 backward kernel calls a step;
  16. one more U-ViT-L/2 step under torch.profiler;
- 17. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 17. pixel_sde training: `Trainer` for cifar10_uvit_small (U-ViT-S/2, full
+     width and depth, unconditional, bf16 autocast over f32 master weights,
+     AdamW + EMA) at the config's batch of 128 on synthetic pixels from a
+     numpy seed; one step through the kernels against the plain attention
+     (loss < 5e-3, whole gradient < 2e-2);
+ 18. `Trainer.fit`: 3 warm-up and 20 timed steps at batch 128, exactly 13
+     forward and 13 backward kernel calls a step;
+ 19. one more CIFAR-10 step under torch.profiler;
+ 20. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -166,18 +195,26 @@ PEAK_BYTES = 3.35e12
 # (B, L, H, D): the serving path's two lengths at batch 2x4, U-ViT-L/2 and U-ViT-H,
 # the training path's two lengths at batch 64, and ImageNet-256 serving
 # (U-ViT-L/2, CFG 2x32).
+# The pixel-space slice: U-ViT-M/4 ImageNet-64 serving (64 labels, 12 heads,
+# L = 2 + 256), U-ViT-S/2 CIFAR-10 serving (32 images, L = 1 + 256, one row
+# past 4 x 64) and its training at batch 128 (with lse).
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
-                 (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64)]
+                 (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
+                 (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
+PIXEL_SHAPES = KERNEL_SHAPES[7:]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
-              (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64)]
+              (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
-# row IMAGENET_SHAPE) and the backward at this shape.
+# row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
+# training at batch 128 (phase 3's last row with lse, and the backward).
 LATENT_TRAIN_SHAPE = BWD_SHAPES[6]
+CIFAR_TRAIN_SHAPE = BWD_SHAPES[7]
+TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
 # Training: batch of the config, 3 warm-up and 20 timed steps; 13 blocks per
@@ -225,6 +262,17 @@ BENCH_ENV = dict(BENCH_BATCH="32", BENCH_REPS="3")
 BENCH_LAUNCHES = (1 + 3) * UVIT_L_BLOCKS * (STEPS + RECOMMENDED_EVALS)
 # U-ViT-L/2 latent_discrete training: batch 64, labels dropped at 0.15.
 LATENT_BATCH, P_UNCOND = 64, 0.15
+# ImageNet-64 (imagenet64_uvit_mid, U-ViT-M/4, 17 blocks): requests of 64
+# labels, the continuous DPM-Solver's 50 evals ([3] x 16 + [2]) of 17
+# kernel-1 launches; the kernel-vs-plain pair at 10 steps.
+IMAGENET64_LABELS, IMAGENET64_BLOCKS, IMAGENET64_COMPARE_STEPS = 64, 17, 10
+# CIFAR-10 (cifar10_uvit_small, U-ViT-S/2, 13 blocks): a request of 32
+# images by 1000 Euler-Maruyama steps, 13 kernel-1 launches each; the
+# kernel-vs-plain pair at 20 steps; the device's idle share from a profiled
+# 100-step request; pixel_sde training at the config's batch of 128.
+CIFAR_IMAGES, CIFAR_BLOCKS, CIFAR_STEPS = 32, 13, 1000
+CIFAR_WARMUP_STEPS, CIFAR_COMPARE_STEPS, CIFAR_PROFILE_STEPS = 10, 20, 100
+CIFAR_BATCH = 128
 
 
 def zero_counts() -> None:
@@ -291,6 +339,15 @@ def cold_ms(fn, iters: int = 10) -> float:
 def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def tail_rel_dev(a: torch.Tensor, b: torch.Tensor, l: int, dim: int = 1):
+    """rel_dev over the rows past the last whole tile of TILE_ROWS along
+    `dim` (None when L is a whole number of tiles)."""
+    tail = l % TILE_ROWS
+    if not tail:
+        return None
+    return rel_dev(a.narrow(dim, l - tail, tail), b.narrow(dim, l - tail, tail))
 
 
 def fmt_spread(spread) -> str:
@@ -364,19 +421,30 @@ def phase_kernel(gen):
         assert lse_rel < 1e-4, ("lse", b, l, h, d, lse_rel)
         rel = rel_dev(out, ref)
         max_abs = float((out.float() - ref.float()).abs().max())
+        # the rows past the last whole tile, on their own
+        tail_rel = tail_rel_dev(out, ref, l)
+        tail_lse = (None if tail_rel is None else
+                    float(((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1e-6))[..., -(l % 64):]
+                          .max()))
         q, k, v = qkv.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
         row = dict(
             shape=[b, l, h, d], loop=fqa.attention_loop(d), max_rel_dev=rel,
-            max_abs_err=max_abs, lse_max_rel_dev=lse_rel,
+            max_abs_err=max_abs, lse_max_rel_dev=lse_rel, tail_rel_dev=tail_rel,
+            tail_lse_max_rel_dev=tail_lse,
             **alternate(lambda: fqa.fused_attention_qkv(qkv, h, scale), sdpa),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_plain(qkv, h, scale)))
         lse_times = alternate(lambda: fqa.fused_attention_qkv(qkv, h, scale, with_lse=True), sdpa)
         row.update(lse_ms=lse_times["ms"], lse_ms_spread=lse_times["ms_spread"])
         row["bound_ms"], row["bound_by"] = bound((b * l * 3 * c + b * l * c) * 2,
                                                  4 * b * l * l * c)
+        # with lse: its (B, H, L) f32 written too
+        row["lse_bound_ms"] = bound((b * l * 3 * c + b * l * c) * 2 + 4 * b * h * l,
+                                    4 * b * l * l * c)[0]
+        tail = ("" if tail_rel is None else
+                f" tail ({l % 64} rows) rel {tail_rel:.2e} lse {tail_lse:.1e}")
         print(f"[3] B{b} L{l} H{h} D{d} ({row['loop']} loop): rel {rel:.2e} max|err| "
-              f"{max_abs:.2e} lse rel {lse_rel:.1e} | kernel {row['ms']:.4f} ms "
+              f"{max_abs:.2e} lse rel {lse_rel:.1e}{tail} | kernel {row['ms']:.4f} ms "
               f"{fmt_spread(row['ms_spread'])} (with lse {row['lse_ms']:.4f} "
               f"{fmt_spread(row['lse_ms_spread'])}), plain {row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms {fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
@@ -384,6 +452,8 @@ def phase_kernel(gen):
               f"{row['lse_ms'] / row['library_ms']:.2f}), bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
         assert np.isfinite(rel) and rel < 5e-3, (b, l, h, d, rel)
+        assert tail_rel is None or (tail_rel < 5e-3 and tail_lse < 1e-4), (b, l, h, d, tail_rel,
+                                                                          tail_lse)
         rows.append(row)
     # The forward-only kernel would drop the gradient: it must refuse.
     qkv = torch.zeros((2, 18, 48), dtype=torch.bfloat16, device="cuda", requires_grad=True)
@@ -416,6 +486,7 @@ def phase_backward(gen):
         assert torch.equal(dqkv, again), ("two calls differ", b, l, h, d)
         rel = rel_dev(dqkv, ref)
         rel_lse = rel_dev(dqkv, ref_lse)
+        tail_rel = tail_rel_dev(dqkv, ref, l)  # the rows past the last whole tile
         max_abs = float((dqkv.float() - ref.float()).abs().max())
         q, k, v = (t.detach().requires_grad_()
                    for t in qkv.view(b, l, 3, h, d).permute(2, 0, 3, 1, 4))
@@ -425,14 +496,17 @@ def phase_backward(gen):
         library = lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)  # noqa: E731
         row = dict(
             shape=[b, l, h, d], loop=fqa.attention_bwd_loop(d), max_rel_dev=rel,
-            max_rel_dev_lse_plain=rel_lse, max_abs_err=max_abs, bit_identical=True,
+            max_rel_dev_lse_plain=rel_lse, tail_rel_dev=tail_rel, max_abs_err=max_abs,
+            bit_identical=True,
             **alternate(kernel, library),
             plain_ms=cuda_ms(lambda: fqa.attention_qkv_vjp_plain(qkv, g, h, scale), iters=5),
             cold_ms=cold_ms(kernel), library_cold_ms=cold_ms(library))
         # qkv + g read, dqkv written, bf16
         row["bound_ms"], row["bound_by"] = bound(14 * b * l * c, 10 * b * l * l * c)
+        tail = "" if tail_rel is None else f", tail ({l % 64} rows) rel {tail_rel:.2e}"
         print(f"[3b] B{b} L{l} H{h} D{d} ({row['loop']} loop): dqkv rel {rel:.2e} (vs its "
-              f"decomposition {rel_lse:.2e}) max|err| {max_abs:.2e}, two calls bit-identical | "
+              f"decomposition {rel_lse:.2e}){tail} max|err| {max_abs:.2e}, two calls "
+              f"bit-identical | "
               f"kernel {row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
               f"ms, sdpa backward {row['library_ms']:.4f} ms "
               f"{fmt_spread(row['library_ms_spread'])} (kernel/sdpa "
@@ -442,6 +516,7 @@ def phase_backward(gen):
               f"({row['bound_by']})")
         assert torch.isfinite(dqkv.float()).all() and np.isfinite(rel) and rel < 5e-3 \
             and rel_lse < 5e-3, (b, l, h, d, rel, rel_lse)
+        assert tail_rel is None or tail_rel < 5e-3, (b, l, h, d, tail_rel)
         rows.append(row)
     return rows
 
@@ -583,17 +658,24 @@ def gemm_device_split(x2d, gamma, beta, w, calls: int = 10) -> dict:
 
     fl.ln_qkv_gemm(x2d, gamma, beta, w)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fl.ln_qkv_gemm(x2d, gamma, beta, w)
-        torch.cuda.synchronize()
-    split = {"stats": 0.0, "gemm": 0.0}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for key, name in (("stats", "ln_row_stats_kernel"), ("gemm", "ln_qkv_gemm_kernel")):
-                if name in e.key:
-                    split[key] += e.self_device_time_total / 1e3 / calls
-    return split
+    # The profiler has come back without one of the two kernels' events
+    # (GEMM 0 ms at (2, 37, 256, 4) once, NVIDIA H100 80GB HBM3): profile
+    # again, up to three times, and fail if a kernel is still missing.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fl.ln_qkv_gemm(x2d, gamma, beta, w)
+            torch.cuda.synchronize()
+        split = {"stats": 0.0, "gemm": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for key, name in (("stats", "ln_row_stats_kernel"),
+                                  ("gemm", "ln_qkv_gemm_kernel")):
+                    if name in e.key:
+                        split[key] += e.self_device_time_total / 1e3 / calls
+        if split["stats"] > 0 and split["gemm"] > 0:
+            return split
+    raise AssertionError(f"the profiler saw no device time of a kernel of ln_qkv_gemm: {split}")
 
 
 def phase_ln_qkv(gen):
@@ -1024,6 +1106,120 @@ def phase_bench():
     return record, counts["fused_attention_qkv"]
 
 
+def phase_imagenet64():
+    """Class-conditional pixel-space serving of imagenet64_uvit_mid (U-ViT-M/4,
+    17 blocks, 12 heads, L = 258), the config's own protocol: the continuous
+    DPM-Solver (fast_upstream, noise prediction, the linear schedule, 50 evals
+    [3] x 16 + [2]), no CFG, bf16 network, f32 solver, no VAE.  A 10-step
+    request of 64 labels through the kernel against the plain attention
+    (images < 2e-2); then 1 warm-up and 3 timed requests of 64 labels at 50
+    steps with every launch counter zeroed just before and read just after:
+    exactly 850 kernel-1 launches a request and none of the other kernels;
+    one request under the profiler."""
+    pipe = GenerationPipeline.from_config("imagenet64_uvit_mid", seed=0)
+    sample = pipe.config.sample
+    assert pipe.continuous and pipe.class_cond and pipe.vae is None
+    assert sample.algorithm == "dpm_solver" and not sample.cfg and sample.sample_steps == STEPS
+    labels = np.random.default_rng(2).integers(0, 1000, size=(REQUESTS + 1, IMAGENET64_LABELS))
+    pipe.generate(labels=labels[0], steps=3)  # warm-up, not counted
+
+    z, _ = pipe._draw(IMAGENET64_LABELS, torch.Generator(device="cuda").manual_seed(17))
+    y = torch.as_tensor(labels[0], device="cuda")
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        outs[impl] = pipe.sample(z, None, y, steps=IMAGENET64_COMPARE_STEPS)[0]
+    set_attn_impl(pipe.nnet, "infer")
+    rel = rel_dev(outs["kernel"], outs["plain"])
+    print(f"[6f] ImageNet-64 M/4 {IMAGENET64_COMPARE_STEPS}-step request of "
+          f"{IMAGENET64_LABELS} labels, images: kernel vs plain rel {rel:.2e} (bar 2e-2)")
+    assert outs["kernel"].shape == (IMAGENET64_LABELS, 3, 64, 64), outs["kernel"].shape
+    assert torch.isfinite(outs["kernel"]).all() and rel < 2e-2, rel
+
+    pipe.generate(labels=labels[0], steps=STEPS, seed=99)  # warm-up at 50 steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    latencies = []
+    per_request = IMAGENET64_BLOCKS * STEPS
+    for i in range(REQUESTS):
+        t0 = time.perf_counter()
+        images = pipe.generate(labels=labels[i + 1], steps=STEPS, seed=i)
+        latencies.append(time.perf_counter() - t0)
+        assert pipe.last_real_evals == STEPS, pipe.last_real_evals
+        assert fqa.launches == (i + 1) * per_request, (i, fqa.launches)
+        assert images.shape == (IMAGENET64_LABELS, 64, 64, 3), images.shape
+        assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    counts = read_counts()
+    want = {"fused_attention_qkv": REQUESTS * per_request}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    result = dict(requests=REQUESTS, labels_per_request=IMAGENET64_LABELS, steps=STEPS,
+                  evals=STEPS, launches=counts["fused_attention_qkv"], latency_s=latencies,
+                  mean_latency_s=float(np.mean(latencies)),
+                  images_per_s=REQUESTS * IMAGENET64_LABELS / sum(latencies),
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[6f] ImageNet-64 M/4 serving: {json.dumps(result)}")
+    busy = device_profile(lambda: pipe.generate(labels=labels[0], steps=STEPS, seed=9), "6f",
+                          f"ImageNet-64 request ({IMAGENET64_LABELS} labels)", min(latencies))
+    result["device_busy_ms"] = busy
+    return counts["fused_attention_qkv"], result
+
+
+def phase_cifar_serving():
+    """Unconditional pixel-space serving of cifar10_uvit_small (U-ViT-S/2, 13
+    blocks, 8 heads, L = 257), the config's own protocol: 1000
+    Euler-Maruyama steps of the reverse SDE, bf16 network, f32 state.  A
+    20-step request of 32 through the kernel against the plain attention on
+    the same draws and the same step-noise generator (images < 2e-2); then,
+    after a 10-step warm-up, one timed request of 32 at 1000 steps with the
+    counters zeroed just before and read just after: exactly 13,000 kernel-1
+    launches and none of the other kernels; the device's idle share from a
+    100-step request under the profiler beside the same request without it."""
+    pipe = GenerationPipeline.from_config("cifar10_uvit_small", seed=0)
+    assert pipe.continuous and not pipe.class_cond and pipe.vae is None
+    assert pipe.config.sample.algorithm == "euler_maruyama_sde"
+    assert pipe.config.sample.sample_steps == CIFAR_STEPS
+    z, _ = pipe._draw(CIFAR_IMAGES, torch.Generator(device="cuda").manual_seed(19))
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        outs[impl] = pipe.sample(z, None, None, steps=CIFAR_COMPARE_STEPS,
+                                 generator=torch.Generator(device="cuda").manual_seed(23))[0]
+    set_attn_impl(pipe.nnet, "infer")
+    rel = rel_dev(outs["kernel"], outs["plain"])
+    print(f"[6g] CIFAR-10 S/2 {CIFAR_COMPARE_STEPS}-step Euler-Maruyama request of "
+          f"{CIFAR_IMAGES}, images: kernel vs plain rel {rel:.2e} (bar 2e-2)")
+    assert outs["kernel"].shape == (CIFAR_IMAGES, 3, 32, 32), outs["kernel"].shape
+    assert torch.isfinite(outs["kernel"]).all() and rel < 2e-2, rel
+
+    pipe.generate(n=CIFAR_IMAGES, steps=CIFAR_WARMUP_STEPS, seed=98)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    images = pipe.generate(n=CIFAR_IMAGES, steps=CIFAR_STEPS, seed=0)
+    latency = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"fused_attention_qkv": CIFAR_BLOCKS * CIFAR_STEPS}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    assert images.shape == (CIFAR_IMAGES, 32, 32, 3), images.shape
+    assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    pipe.generate(n=CIFAR_IMAGES, steps=CIFAR_PROFILE_STEPS, seed=1)
+    short = time.perf_counter() - t0
+    busy = device_profile(lambda: pipe.generate(n=CIFAR_IMAGES, steps=CIFAR_PROFILE_STEPS,
+                                                seed=2),
+                          "6g", f"CIFAR-10 {CIFAR_PROFILE_STEPS}-step request", short)
+    result = dict(images=CIFAR_IMAGES, steps=CIFAR_STEPS, launches=counts["fused_attention_qkv"],
+                  latency_s=latency, images_per_s=CIFAR_IMAGES / latency,
+                  ms_per_step=latency / CIFAR_STEPS * 1e3, max_memory_allocated_gb=peak,
+                  profile_steps=CIFAR_PROFILE_STEPS, profile_unprofiled_s=short,
+                  device_busy_ms=busy, device_idle_share=1 - busy / (short * 1e3))
+    print(f"[6g] CIFAR-10 S/2 serving: {json.dumps(result)}")
+    return counts["fused_attention_qkv"], result
+
+
 def write_pretrained(path: str, config) -> None:
     """A reference-format .pth from a seeded model, zero convs opened so the
     mask stream feeds the image stream."""
@@ -1049,9 +1245,13 @@ def phase_train_parity(trainer, batch_size, impls, tag):
     batch = tuple(np.stack(f) for f in zip(*(
         trainer.dataset.train[i] for i in range(batch_size))))
     h, w, c2 = batch[0].shape[1:]
-    noise = {"z": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
-             "n": rng.integers(1, 1001, batch_size),
-             "eps": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32)}
+    if trainer.task == "pixel_sde":  # continuous times and the image noise
+        noise = {"t": rng.uniform(size=batch_size).astype(np.float32),
+                 "eps": rng.standard_normal(batch[0].shape).astype(np.float32)}
+    else:
+        noise = {"z": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32),
+                 "n": rng.integers(1, 1001, batch_size),
+                 "eps": rng.standard_normal((batch_size, h, w, c2 // 2)).astype(np.float32)}
     if trainer.task == "t2i_discrete":
         m = trainer.config.nnet.mask_size
         noise["eps_m"] = 2.0 * rng.standard_normal(
@@ -1150,6 +1350,22 @@ def make_latent_trainer(tmp):
     return trainer
 
 
+def make_pixel_trainer(tmp):
+    """`Trainer` for cifar10_uvit_small (pixel_sde, unconditional, U-ViT-S/2 at
+    full width and depth from the seeded initialisation, bf16 autocast over
+    f32 master weights, AdamW + EMA) at the config's batch of 128 on
+    synthetic pixels (32, 32, 3) from a numpy seed: only the dataset is cut."""
+    config = get_config("cifar10_uvit_small")
+    config.dataset = d(name="synthetic", style="pixels", n=4 * CIFAR_BATCH,
+                       z_shape=(32, 32, 3), num_classes=10)
+    config.train.log_interval = 5
+    config.num_workers = 4
+    trainer = Trainer(config, os.path.join(tmp, "run_cifar10_uvit_small"), device="cuda")
+    assert trainer.task == "pixel_sde" and config.train.mode == "uncond"
+    assert config.train.batch_size == CIFAR_BATCH and not config.nnet.use_checkpoint
+    return trainer
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -1175,6 +1391,10 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     bench_record, bench_launches = phase_bench()
+    torch.cuda.empty_cache()
+    imagenet64_launches, _ = phase_imagenet64()
+    torch.cuda.empty_cache()
+    cifar_launches, _ = phase_cifar_serving()
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1204,6 +1424,15 @@ def main() -> int:
                                    "fused_attention_qkv_vjp": UVIT_L_BLOCKS})
         phase_train_profile(latent_trainer, latent_step_s, "16")
         del latent_trainer
+        torch.cuda.empty_cache()
+
+        pixel_trainer = make_pixel_trainer(tmp)
+        phase_train_parity(pixel_trainer, CIFAR_BATCH, ("auto", "plain"), "17")
+        pixel_counts, pixel_step_s = phase_train(
+            pixel_trainer, "18", {"fused_attention_qkv": CIFAR_BLOCKS,
+                                  "fused_attention_qkv_vjp": CIFAR_BLOCKS})
+        phase_train_profile(pixel_trainer, pixel_step_s, "19")
+        del pixel_trainer
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -1224,6 +1453,11 @@ def main() -> int:
                           f"U-ViT-L/2 latent_discrete training ({TIMED_STEPS} steps)":
                               latent_counts["fused_attention_qkv"],
                           "port bench (exact and recommended, 4 runs each)": bench_launches,
+                          "ImageNet-64 M/4 serving (3 requests)": imagenet64_launches,
+                          "CIFAR-10 S/2 Euler-Maruyama serving (1 request of 1000 steps)":
+                              cifar_launches,
+                          f"CIFAR-10 S/2 pixel_sde training ({TIMED_STEPS} steps)":
+                              pixel_counts["fused_attention_qkv"],
                           "A/B chain, shipped and fused arms (B=32, 64)":
                               chain_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -1232,8 +1466,9 @@ def main() -> int:
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in main_rows) else "operations",
         per="one launch at L=334 plus one at L=590 (B=8, H=8, D=64), the pair each "
             "dual-stream layer runs per NFE; the ImageNet-256 serving shape is the row "
-            f"{list(IMAGENET_SHAPE)}; the fused arm of the A/B chain launches this kernel "
-            "inside fused_ln_qkv_attention, which counts it there",
+            f"{list(IMAGENET_SHAPE)}, the pixel-space shapes the rows "
+            f"{[list(x) for x in PIXEL_SHAPES]}; the fused arm of the A/B chain launches "
+            "this kernel inside fused_ln_qkv_attention, which counts it there",
         shapes=rows)
     train_rows = [r for r in bwd_rows if tuple(r["shape"]) in TRAIN_SHAPES]
     per_step = {k: sum(r[k] for r in train_rows) for k in ("ms", "plain_ms", "bound_ms",
@@ -1245,14 +1480,17 @@ def main() -> int:
         launches=bwd_train,
         launches_by_path={f"training ({TIMED_STEPS} steps)": bwd_train,
                           f"U-ViT-L/2 latent_discrete training ({TIMED_STEPS} steps)":
-                              latent_counts["fused_attention_qkv_vjp"]},
+                              latent_counts["fused_attention_qkv_vjp"],
+                          f"CIFAR-10 S/2 pixel_sde training ({TIMED_STEPS} steps)":
+                              pixel_counts["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in train_rows) else "operations",
         per="one call at L=334 plus one at L=590 (B=64, H=8, D=64), the pair each "
             "dual-stream layer runs per train step; one call is two CUDA kernels; the "
-            f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}",
+            f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}, the CIFAR-10 "
+            f"one {list(CIFAR_TRAIN_SHAPE)}",
         shapes=bwd_rows)
     hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
     per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",

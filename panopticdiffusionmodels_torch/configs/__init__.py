@@ -1,8 +1,10 @@
 """Config zoo of the port: the configs it serves so far."""
 import importlib
 
-CONFIG_NAMES = ["imagenet256_uvit_large", "mscoco_uvit_small", "mscoco_uvit_small_512",
-                "synthetic_tiny", "synthetic_tiny_cond"]
+CONFIG_NAMES = ["cifar10_uvit_small", "celeba64_uvit_small", "imagenet64_uvit_mid",
+                "imagenet64_uvit_large", "imagenet256_uvit_large", "mscoco_uvit_small",
+                "mscoco_uvit_small_512", "synthetic_tiny", "synthetic_tiny_cond",
+                "synthetic_tiny_pixel"]
 
 
 def get_config(name: str):

@@ -1,38 +1,66 @@
-"""Datasets of the training slices: MS-COCO pre-encoded features with panoptic
-maps, ImageNet pre-encoded features with labels, and synthetic data of the
-same shapes.
+"""Datasets of the training slices: CIFAR-10, CelebA and raw ImageNet images,
+MS-COCO pre-encoded features with panoptic maps, ImageNet pre-encoded
+features with labels, and synthetic data of the same shapes.
 
-A numpy-only copy of the parts of `panopticdiffusionmodels_tpu/data/datasets.py`
-that `t2i_discrete` and `latent_discrete` training read.  Samples are numpy
-arrays, channel-last like the JAX package's: moments (h, w, 2C) f32, context
-(77, clip_dim) f32, panoptic ids (H, W, 1) int32, labels int.  The feature
-files are those of the reference extraction scripts (COCO: `{i}.npy` moments
-(2C, h, w), `{i}_{k}.npy` CLIP contexts, `{i}_seg.npy` seg maps, reference
-`datasets.py:564-613`; ImageNet: `{i}.npy` a pickled (moments (2C, h, w),
-label) pair, reference `datasets.py:187-198`), so the same directory trains
-either package.
+A numpy + PIL copy of `panopticdiffusionmodels_tpu/data/datasets.py`.
+Samples are numpy arrays, channel-last like the JAX package's: images
+(H, W, 3) f32 in [-1, 1], moments (h, w, 2C) f32, context (77, clip_dim)
+f32, panoptic ids (H, W, 1) int32, labels int.  CIFAR-10 is read from its
+python-pickle batches; CelebA and ImageNet from image trees, centre-cropped
+and bicubic-resized with PIL.  The feature files are those of the reference
+extraction scripts (COCO: `{i}.npy` moments (2C, h, w), `{i}_{k}.npy` CLIP
+contexts, `{i}_seg.npy` seg maps, reference `datasets.py:564-613`; ImageNet:
+`{i}.npy` a pickled (moments (2C, h, w), label) pair, reference
+`datasets.py:187-198`), so the same directory trains either package.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import random
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 
 class DatasetFactory:
-    """train/test splits (reference `datasets.py:84-130`); every sample keeps
-    its conditioning fields (the JAX `get_split(..., labeled=True)`)."""
+    """train/test splits (reference `datasets.py:84-130`).  `get_split`
+    strips a labeled dataset to its first field unless `labeled=True`, as
+    the JAX `get_split` does; training passes `labeled=True`."""
 
     def __init__(self):
         self.train = None
         self.test = None
 
-    def get_split(self, split: str):
+    def get_split(self, split: str, labeled: bool = False):
         if split not in ("train", "test"):
             raise ValueError(split)
-        return getattr(self, split)
+        dataset = getattr(self, split)
+        if self.has_label and not labeled:
+            return UnlabeledDataset(dataset)
+        return dataset
+
+    def unpreprocess(self, v):
+        """[-1, 1] -> [0, 1] image space (reference `datasets.py:118-121`)."""
+        return np.clip(0.5 * (v + 1.0), 0.0, 1.0)
+
+    @property
+    def has_label(self) -> bool:
+        return True
+
+
+class UnlabeledDataset:
+    """Only the first field of each sample (reference `datasets.py:19-28`)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, item):
+        data = self.dataset[item]
+        return data[0] if isinstance(data, tuple) else data
 
 
 class CFGDataset:
@@ -194,6 +222,148 @@ class ImageNetFeatures(DatasetFactory):
         self.test = train
 
 
+# --- pixel-space images ----------------------------------------------------
+
+
+def _load_cifar10_arrays(path: str, train: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """uint8 NHWC images and int32 labels from the python-pickle batches."""
+    batch_dir = os.path.join(path, "cifar-10-batches-py")
+    root = batch_dir if os.path.isdir(batch_dir) else path
+    names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    xs, ys = [], []
+    for name in names:
+        with open(os.path.join(root, name), "rb") as f:
+            batch = pickle.load(f, encoding="bytes")
+        xs.append(np.asarray(batch[b"data"], dtype=np.uint8))
+        ys.append(np.asarray(batch[b"labels"], dtype=np.int32))
+    return np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1), np.concatenate(ys)
+
+
+class ArrayImageDataset:
+    """In-memory uint8 NHWC images as f32 in [-1, 1], optionally flipped
+    left-right with probability 1/2 (the `random` module's global state, as
+    the JAX package draws it)."""
+
+    def __init__(self, images: np.ndarray, labels: Optional[np.ndarray] = None,
+                 random_flip: bool = False):
+        self.images = images
+        self.labels = labels
+        self.random_flip = random_flip
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, item):
+        img = self.images[item].astype(np.float32) / 127.5 - 1.0
+        if self.random_flip and random.random() < 0.5:
+            img = img[:, ::-1, :].copy()
+        if self.labels is None:
+            return img
+        return img, int(self.labels[item])
+
+
+class CIFAR10(DatasetFactory):
+    """CIFAR-10 from `cifar-10-batches-py` (reference `datasets.py:135-181`):
+    50,000 training images; with `cfg`, labels dropped to the null class 10
+    at `p_uncond`."""
+
+    def __init__(self, path: str, random_flip: bool = False, cfg: bool = False,
+                 p_uncond: Optional[float] = None):
+        super().__init__()
+        x_train, y_train = _load_cifar10_arrays(path, train=True)
+        x_test, y_test = _load_cifar10_arrays(path, train=False)
+        train = ArrayImageDataset(x_train, y_train, random_flip=random_flip)
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("cifar10: cfg=True needs p_uncond")
+            train = CFGLabelDataset(train, p_uncond, 10)
+        self.train = train
+        self.test = ArrayImageDataset(x_test, y_test)
+        assert len(self.train) == 50000, len(self.train)
+
+
+class FolderImageDataset:
+    """Image files centre-cropped to a square and bicubic-resized to
+    `resolution` with PIL, as f32 in [-1, 1] (reference `ImageDataset`,
+    `datasets.py:304-384`, its used paths), optionally flipped as
+    `ArrayImageDataset` flips."""
+
+    def __init__(self, paths: Sequence[str], resolution: int, labels=None,
+                 random_flip: bool = True):
+        self.paths = list(paths)
+        self.resolution = resolution
+        self.labels = labels
+        self.random_flip = random_flip
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, item):
+        from PIL import Image
+
+        img = Image.open(self.paths[item]).convert("RGB")
+        w, h = img.size
+        s = min(w, h)
+        img = img.crop(((w - s) // 2, (h - s) // 2, (w + s) // 2, (h + s) // 2))
+        img = img.resize((self.resolution, self.resolution), Image.BICUBIC)
+        arr = np.asarray(img, dtype=np.float32) / 127.5 - 1.0
+        if self.random_flip and random.random() < 0.5:
+            arr = arr[:, ::-1, :].copy()
+        if self.labels is None:
+            return arr
+        return arr, int(self.labels[item])
+
+
+class CelebA(DatasetFactory):
+    """CelebA at 64x64 from `img_align_celeba/` (reference
+    `datasets.py:406-441`): every image trains, flipped; the first 512 test."""
+
+    def __init__(self, path: str, resolution: int = 64):
+        super().__init__()
+        img_dir = os.path.join(path, "img_align_celeba")
+        root = img_dir if os.path.isdir(img_dir) else path
+        paths = sorted(os.path.join(root, p) for p in os.listdir(root)
+                       if p.lower().endswith((".jpg", ".png", ".jpeg")))
+        self.resolution = resolution
+        self.train = FolderImageDataset(paths, resolution, random_flip=True)
+        self.test = FolderImageDataset(paths[:512], resolution, random_flip=False)
+
+    @property
+    def has_label(self):
+        return False
+
+
+class ImageNetRaw(DatasetFactory):
+    """Class-labelled ImageNet from a `train/<class>/*.JPEG` tree (reference
+    `datasets.py:253-301`), classes in sorted order, centre-cropped to
+    `resolution`; with `cfg`, labels dropped to the null class (the number
+    of classes) at `p_uncond`."""
+
+    def __init__(self, path: str, resolution: int = 64, random_flip: bool = True,
+                 cfg: bool = False, p_uncond: Optional[float] = None):
+        super().__init__()
+        self.resolution = resolution
+        train_root = os.path.join(path, "train")
+        root = train_root if os.path.isdir(train_root) else path
+        classes = sorted(c for c in os.listdir(root) if os.path.isdir(os.path.join(root, c)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        paths, labels = [], []
+        for cname in classes:
+            cdir = os.path.join(root, cname)
+            for n in sorted(os.listdir(cdir)):
+                if n.lower().endswith((".jpeg", ".jpg", ".png")):
+                    paths.append(os.path.join(cdir, n))
+                    labels.append(self.class_to_idx[cname])
+        train = FolderImageDataset(paths, resolution, labels=labels, random_flip=random_flip)
+        if cfg:
+            if p_uncond is None:
+                raise ValueError("imagenet: cfg=True needs p_uncond")
+            train = CFGLabelDataset(train, p_uncond, len(classes))
+        self.train = train
+        self.test = FolderImageDataset(paths[:512], resolution, labels=labels[:512],
+                                       random_flip=False)
+
+
 class SyntheticDataset:
     """Seeded numpy fields: normal f32, or ids in [0, 200] for `int_fields`."""
 
@@ -263,7 +433,10 @@ def get_dataset(name: str, **kwargs) -> DatasetFactory:
         return ImageNetFeatures(resolution=256 if "256" in name else 512, **kwargs)
     if name == "synthetic":
         return Synthetic(**kwargs)
-    if name in ("cifar10", "celeba", "imagenet"):
-        raise NotImplementedError(
-            f"dataset {name!r} comes with the slice of its task (pixel space)")
+    if name == "cifar10":
+        return CIFAR10(**kwargs)
+    if name == "celeba":
+        return CelebA(**kwargs)
+    if name == "imagenet":
+        return ImageNetRaw(**kwargs)
     raise NotImplementedError(name)

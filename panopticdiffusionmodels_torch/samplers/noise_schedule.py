@@ -1,13 +1,19 @@
-"""The discrete VP noise schedule for DPM-Solver, a host-side float64 object.
+"""The VP noise schedules of DPM-Solver, a host-side float64 object.
 
-Own copy of the 'discrete' part of
-`panopticdiffusionmodels_tpu/samplers/noise_schedule.py::NoiseScheduleVP`:
-log alpha_bar = 0.5*cumsum(log(1-beta)) on knots t_i = i/N, piecewise-linear
-interpolation with linear extrapolation beyond the outermost knots.  Every
-quantity depends on the schedule and the step plan only, never on data.
+Own copy of `panopticdiffusionmodels_tpu/samplers/noise_schedule.py::NoiseScheduleVP`:
+
+  * 'discrete': log alpha_bar = 0.5*cumsum(log(1-beta)) on knots t_i = i/N,
+    piecewise-linear interpolation with linear extrapolation beyond the
+    outermost knots;
+  * 'linear': the closed-form VP SDE on DDPM's beta range (BETA_0, BETA_1),
+    T = 1;
+  * 'cosine': the improved-DDPM cosine schedule, T = 0.9946.
+
+Every quantity depends on the schedule and the step plan only, never on data.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -27,26 +33,43 @@ def interp_with_extrapolation(x, xp, yp):
     return y0 + (x - x0) * (y1 - y0) / (x1 - x0)
 
 
+# The linear schedule's beta range: DDPM's per-step 1e-4 and 2e-2, times 1000
+# for continuous time.
+BETA_0 = 0.1
+BETA_1 = 20.0
+
+
 class NoiseScheduleVP:
     """alpha_t, sigma_t, lambda_t and the inverse lambda -> t map."""
 
     def __init__(self, schedule: str = "discrete", betas: Optional[np.ndarray] = None,
                  alphas_cumprod: Optional[np.ndarray] = None):
-        if schedule != "discrete":
-            raise NotImplementedError(
-                f"noise schedule {schedule!r} comes with the continuous-SDE slice")
-        if betas is not None:
-            log_alphas = 0.5 * np.cumsum(np.log(1.0 - np.asarray(betas, np.float64)))
-        else:
-            log_alphas = 0.5 * np.log(np.asarray(alphas_cumprod, np.float64))
+        if schedule not in ("linear", "discrete", "cosine"):
+            raise ValueError(f"unsupported noise schedule {schedule}")
         self.schedule = schedule
-        self.total_N = len(log_alphas)
-        self.t_discrete = np.linspace(1.0 / self.total_N, 1.0, self.total_N)
-        self.log_alpha_discrete = log_alphas
-        self.T = 1.0
+        if schedule == "discrete":
+            if betas is not None:
+                log_alphas = 0.5 * np.cumsum(np.log(1.0 - np.asarray(betas, np.float64)))
+            else:
+                log_alphas = 0.5 * np.log(np.asarray(alphas_cumprod, np.float64))
+            self.t_discrete = np.linspace(1.0 / len(log_alphas), 1.0, len(log_alphas))
+            self.log_alpha_discrete = log_alphas
+        self.cosine_s = 0.008
+        self.cosine_beta_max = 999.0
+        self.cosine_t_max = (math.atan(self.cosine_beta_max * (1.0 + self.cosine_s) / math.pi)
+                             * 2.0 * (1.0 + self.cosine_s) / math.pi - self.cosine_s)
+        self.cosine_log_alpha_0 = math.log(
+            math.cos(self.cosine_s / (1.0 + self.cosine_s) * math.pi / 2.0))
+        self.T = 0.9946 if schedule == "cosine" else 1.0
 
     def marginal_log_mean_coeff(self, t):
-        return interp_with_extrapolation(t, self.t_discrete, self.log_alpha_discrete)
+        t = np.asarray(t, dtype=np.float64)
+        if self.schedule == "linear":
+            return -0.25 * t ** 2 * (BETA_1 - BETA_0) - 0.5 * t * BETA_0
+        if self.schedule == "discrete":
+            return interp_with_extrapolation(t, self.t_discrete, self.log_alpha_discrete)
+        log_alpha = np.log(np.cos((t + self.cosine_s) / (1.0 + self.cosine_s) * math.pi / 2.0))
+        return log_alpha - self.cosine_log_alpha_0
 
     def marginal_alpha(self, t):
         return np.exp(self.marginal_log_mean_coeff(t))
@@ -60,5 +83,13 @@ class NoiseScheduleVP:
 
     def inverse_lambda(self, lamb):
         lamb = np.asarray(lamb, dtype=np.float64)
-        log_alpha = -0.5 * np.logaddexp(np.zeros_like(lamb), -2.0 * lamb)
-        return interp_with_extrapolation(log_alpha, self.log_alpha_discrete, self.t_discrete)
+        if self.schedule == "linear":
+            tmp = 2.0 * (BETA_1 - BETA_0) * np.logaddexp(-2.0 * lamb, np.zeros_like(lamb))
+            return tmp / (np.sqrt(BETA_0 ** 2 + tmp) + BETA_0) / (BETA_1 - BETA_0)
+        if self.schedule == "discrete":
+            log_alpha = -0.5 * np.logaddexp(np.zeros_like(lamb), -2.0 * lamb)
+            return interp_with_extrapolation(log_alpha, self.log_alpha_discrete,
+                                             self.t_discrete)
+        log_alpha = -0.5 * np.logaddexp(-2.0 * lamb, np.zeros_like(lamb))
+        return (np.arccos(np.exp(log_alpha + self.cosine_log_alpha_0)) * 2.0
+                * (1.0 + self.cosine_s) / math.pi - self.cosine_s)

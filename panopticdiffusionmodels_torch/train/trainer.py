@@ -1,9 +1,12 @@
-"""The training engine of the port: tasks `t2i_discrete` and `latent_discrete`.
+"""The training engine of the port: tasks `t2i_discrete`, `latent_discrete`,
+`pixel_sde` and `latent_sde`.
 
 Port of `panopticdiffusionmodels_tpu/train/trainer.py::Trainer` for the
-panoptic text-to-image task (reference `train_t2i_discrete.py`) and the
+panoptic text-to-image task (reference `train_t2i_discrete.py`), the
 class-conditional latent task of U-ViT on ImageNet features (reference
-`train_ldm_discrete.py`):
+`train_ldm_discrete.py`) and the continuous-time VP-SDE tasks of U-ViT on
+images (`pixel_sde`, unconditional or class-conditional, reference
+`train.py`) or on latent moments (`latent_sde`, reference `train_ldm.py`):
 
   * the model is built with `attn_impl='auto'` (the attention kernels'
     forward and backward on the card) and the config's `use_checkpoint` /
@@ -12,7 +15,9 @@ class-conditional latent task of U-ViT on ImageNet features (reference
     `torch.autocast` (GEMMs in bf16; LayerNorm, softmax and the loss in f32);
   * one `train_step(batch)` = the loss of `_loss` (the VAE reparameterised
     draw from the moments, then `l_simple_panoptic`, or `l_simple` with the
-    labels for `latent_discrete`), its gradients
+    labels for `latent_discrete`; for the SDE tasks the continuous
+    `diffusion/sde.py::l_simple` of the `VPSDE`, on the images or on the
+    draw from the moments), its gradients
     (optionally over `grad_accum` micro-batches), the global gradient norm,
     AdamW and the EMA (`train/state.py`);
   * `fit` keeps a bounded queue of in-flight steps and reads a step's loss
@@ -32,10 +37,11 @@ class-conditional latent task of U-ViT on ImageNet features (reference
 
 Batches are channel-last numpy arrays as the JAX package's (moments
 (B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1); or moments and
-labels (B,)); the trainer
-transposes to the network's NCHW at the model boundary only.  Every random
-draw of a step (the VAE noise `z`, the timesteps `n`, `eps`, `eps_m`; the
-last only for the panoptic task) can be
+labels (B,); or images (B, H, W, 3) in [-1, 1] with or without labels); the
+trainer transposes to the network's NCHW at the model boundary only.  Every
+random draw of a step (the VAE noise `z`, the timesteps `n`, `eps`, `eps_m`;
+the last only for the panoptic task; the continuous times `t` and `eps` for
+the SDE tasks) can be
 passed in through `noise`, so a test can hand the JAX trainer's draws to
 both sides; otherwise they come from the trainer's `torch.Generator`,
 reseeded before every step from (`config.seed`, step) as the JAX trainer
@@ -61,6 +67,8 @@ from ..diffusion.schedule import (
     l_simple_panoptic,
     stable_diffusion_beta_schedule,
 )
+from ..diffusion.sde import VPSDE, ScoreModel
+from ..diffusion.sde import l_simple as l_simple_continuous
 from ..models import get_nnet
 from ..models.vae import sample_from_moments
 from ..parallel.mesh import from_mesh
@@ -88,23 +96,28 @@ def _check_supported(config) -> None:
         if not config.nnet.get("enable_panoptic", True):
             raise NotImplementedError("image-only t2i training (l_simple) comes with a later "
                                       "slice")
-    elif task == "latent_discrete":
-        if config.nnet.name != "uvit" or config.nnet.get("num_classes", -1) <= 0:
+    elif task in ("latent_discrete", "pixel_sde", "latent_sde"):
+        mode = config.train.get("mode", "uncond" if task == "pixel_sde" else "cond")
+        if config.nnet.name != "uvit":
             raise NotImplementedError(
-                f"latent_discrete training of nnet {config.nnet.name!r} (num_classes="
-                f"{config.nnet.get('num_classes')}): the port trains the class-conditional "
-                "uvit; the others come with a later slice")
-        if config.train.get("mode", "cond") != "cond":
+                f"{task} training of nnet {config.nnet.name!r}: the port trains the uvit; "
+                "the others come with a later slice")
+        if task == "latent_discrete" and mode != "cond":
             raise NotImplementedError("latent_discrete with train.mode != 'cond' comes with "
                                       "a later slice")
+        if mode not in ("cond", "uncond"):
+            raise ValueError(f"train.mode must be 'cond' or 'uncond', got {mode!r}")
+        if (mode == "cond") != (config.nnet.get("num_classes", -1) > 0):
+            raise ValueError(f"{task} with train.mode={mode!r} needs a "
+                             f"{'class-conditional' if mode == 'cond' else 'unconditional'} "
+                             f"uvit, got num_classes={config.nnet.get('num_classes')}")
         if config.get("mesh", {}).get("sp", 1) != 1:
             raise NotImplementedError("sequence-parallel uvit training comes with the "
                                       "distributed slice")
     else:
         raise NotImplementedError(
-            f"task {task!r} is not ported yet: the port trains t2i_discrete and "
-            "latent_discrete; pixel_sde / latent_sde come with their own slice of the "
-            "port")
+            f"task {task!r} is not ported: the port trains t2i_discrete, latent_discrete, "
+            "pixel_sde and latent_sde")
     mesh = config.get("mesh", {})
     dp = mesh.get("dp", -1)
     if dp not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in ("fsdp", "tp")):
@@ -171,7 +184,10 @@ class Trainer:
         self.state = TrainState(
             self.nnet, lr_sched, betas=config.optimizer.betas,
             weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen)
-        self.schedule = Schedule(stable_diffusion_beta_schedule())
+        if self.task in ("pixel_sde", "latent_sde"):
+            self.sde = VPSDE()
+        else:
+            self.schedule = Schedule(stable_diffusion_beta_schedule())
         self.generator = torch.Generator(device=self.device)
         self.compute_dtype = _DTYPES[config.get("compute_dtype", "bfloat16")]
 
@@ -191,9 +207,9 @@ class Trainer:
 
         return fn
 
-    def _label_nnet_fn(self, y):
-        """(xn, t) on channel-last tensors -> eps_pred channel-last, through
-        the NCHW class-conditional network with labels y."""
+    def _label_nnet_fn(self, y=None):
+        """(xn, t) on channel-last tensors -> the prediction channel-last,
+        through the NCHW uvit with labels y (None: unconditional)."""
 
         def fn(xn, t):
             with torch.autocast(self.device.type, dtype=self.compute_dtype,
@@ -205,8 +221,11 @@ class Trainer:
 
     def _loss(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None):
         """(scalar loss, metrics) of one (micro-)batch: JAX `Trainer._loss`,
-        t2i_discrete and latent_discrete branches."""
+        t2i_discrete and latent_discrete branches (the SDE tasks in
+        `_sde_loss`)."""
         noise = noise or {}
+        if self.task in ("pixel_sde", "latent_sde"):
+            return self._sde_loss(batch, noise)
         moments = batch[0].float()
         z = sample_from_moments(moments, self.config.autoencoder.scale_factor,
                                 noise=noise.get("z"), generator=self.generator)
@@ -227,7 +246,24 @@ class Trainer:
             return loss_eps.mean(), metrics
         return loss_eps.mean() + loss_mask.mean(), metrics
 
+    def _sde_loss(self, batch, noise):
+        """JAX `Trainer._loss`, pixel_sde and latent_sde branches: the
+        continuous loss of the VPSDE on the images, or on the draw from the
+        moments, with the labels when `train.mode` is 'cond'."""
+        default = "uncond" if self.task == "pixel_sde" else "cond"
+        y = batch[1] if self.config.train.get("mode", default) == "cond" else None
+        x = batch[0].float()
+        if self.task == "latent_sde":
+            x = sample_from_moments(x, self.config.autoencoder.scale_factor,
+                                    noise=noise.get("z"), generator=self.generator)
+        sm = ScoreModel(self._label_nnet_fn(y), self.config.pred, self.sde)
+        loss = l_simple_continuous(sm, x, pred=self.config.pred, t=noise.get("t"),
+                                   eps=noise.get("eps"), generator=self.generator)
+        return loss.mean(), {"loss": loss.mean().detach()}
+
     def _as_device(self, batch, noise):
+        if not isinstance(batch, (tuple, list)):  # an unlabeled dataset's images
+            batch = (batch,)
         batch = tuple(torch.as_tensor(x).to(self.device) for x in batch)
         if noise is not None:
             noise = {k: torch.as_tensor(v).to(self.device) for k, v in noise.items()
@@ -285,7 +321,7 @@ class Trainer:
         cast_int = (np.uint8 if self.config.nnet.get("enable_panoptic", False)
                     and self.config.nnet.get("mask_bits", 8) <= 8
                     and cfgt.get("transfer_mask_uint8", True) else None)
-        loader = Loader(self.dataset.get_split("train"),
+        loader = Loader(self.dataset.get_split("train", labeled=True),
                         batch_size=cfgt.batch_size,
                         num_workers=self.config.get("num_workers", 8), seed=self.config.seed)
         if start_step:

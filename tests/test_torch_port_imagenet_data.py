@@ -68,11 +68,12 @@ def test_imagenet_factory_equals_jax(tmp_path, name, res, p_uncond):
     ours = get_dataset(name, path=str(tmp_path), cfg=True, p_uncond=p_uncond)
     ref = JaxImageNetFeatures(str(tmp_path), cfg=True, p_uncond=p_uncond, resolution=res)
     assert isinstance(ours, ImageNetFeatures) and ours.resolution == ref.resolution == res
-    train = ours.get_split("train")
+    train = ours.get_split("train", labeled=True)
     assert isinstance(train, CFGLabelDataset) and train.null_label == 1000
     for i in range(N_FILES):
         _assert_items_equal(train[i], ref.get_split("train", labeled=True)[i])
-        _assert_items_equal(ours.get_split("test")[i], ref.get_split("test", labeled=True)[i])
+        _assert_items_equal(ours.get_split("test", labeled=True)[i],
+                            ref.get_split("test", labeled=True)[i])
     if p_uncond == 1.0:
         assert {train[i][1] for i in range(N_FILES)} == {1000}
 
@@ -82,7 +83,7 @@ def test_imagenet_cfg_needs_p_uncond(tmp_path):
     with pytest.raises(ValueError, match="p_uncond"):
         get_dataset("imagenet256_features", path=str(tmp_path), cfg=True)
     plain = get_dataset("imagenet256_features", path=str(tmp_path))
-    assert isinstance(plain.get_split("train"), FeatureDataset)
+    assert isinstance(plain.get_split("train", labeled=True), FeatureDataset)
 
 
 def _labels(loader, n_batches):
@@ -115,9 +116,11 @@ def test_labeled_synthetic_equals_jax(style):
     kw = dict(n=12, z_shape=(4, 4, 8), seed=5, style=style, num_classes=11)
     ours, ref = Synthetic(**kw), JaxSynthetic(**kw)
     for i in (0, 5, 11):
-        _assert_items_equal(ours.get_split("train")[i], ref.get_split("train", labeled=True)[i])
-        assert 0 <= ours.get_split("test")[i][1] < 11
+        _assert_items_equal(ours.get_split("train", labeled=True)[i],
+                            ref.get_split("train", labeled=True)[i])
+        assert 0 <= ours.get_split("test", labeled=True)[i][1] < 11
     with pytest.raises(ValueError):
         Synthetic(style="video")
     ds = get_dataset("synthetic", **kw)
-    assert isinstance(ds.get_split("train"), SyntheticLabeled) and len(ds.get_split("train")) == 12
+    train = ds.get_split("train", labeled=True)
+    assert isinstance(train, SyntheticLabeled) and len(train) == 12

@@ -6,6 +6,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "ml_collections", "absl", "panopticdiffusionmodels_tpu")
+# the modules of the pixel-space slice, which the walk below must reach
+PIXEL_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "diffusion.sde", "samplers.euler_maruyama", "configs.cifar10_uvit_small",
+    "configs.imagenet64_uvit_mid")]
 
 PROBE = f"""
 import importlib, pkgutil, sys
@@ -16,6 +20,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print("FORBIDDEN:", bad)
 print("MODULES:", sum(m.startswith(pkg.__name__) for m in sys.modules))
+print("PIXEL:", all(m in sys.modules for m in {PIXEL_MODULES!r}))
 """
 
 
@@ -25,7 +30,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "FORBIDDEN: []" in out.stdout, out.stdout
-    assert int(out.stdout.split("MODULES:")[1]) >= 15
+    assert int(out.stdout.split("MODULES:")[1].split()[0]) >= 15
+    assert "PIXEL: True" in out.stdout, out.stdout
 
 
 def test_port_sources_name_no_jax_import():

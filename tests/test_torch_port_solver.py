@@ -131,8 +131,20 @@ def test_uvit_t2i_cfg_trajectory_matches_jax():
 @pytest.mark.parametrize("kwargs", [dict(method="singlestep"), dict(method="multistep"),
                                     dict(predict_x0=False)])
 def test_later_slice_modes_raise(kwargs):
+    """These modes raised until the pixel-space slice ported them (their
+    parity with JAX is in test_torch_port_solver_methods.py): now each runs
+    its 3 evals, and refuses the speed modes it cannot apply as JAX does."""
     kwargs = dict(kwargs)
     method = kwargs.pop("method", "fast")
-    with pytest.raises(NotImplementedError, match="slice"):
-        DPMSolver(lambda x, t: x, NoiseScheduleVP("discrete", betas=BETAS), **kwargs).sample(
-            torch.zeros((1, 4, 2, 2)), steps=3, method=method)
+    solver = DPMSolver(lambda x, t: x * 0.5, NoiseScheduleVP("discrete", betas=BETAS),
+                       **kwargs)
+    out = solver.sample(torch.ones((1, 4, 2, 2)), steps=3, method=method)
+    assert out.shape == (1, 4, 2, 2) and torch.isfinite(out).all()
+    assert solver.real_evals == 3
+    refused = DPMSolver(lambda x, t: x * 0.5, NoiseScheduleVP("discrete", betas=BETAS),
+                        accel_tau=0.2, **kwargs)
+    if method == "multistep":
+        with pytest.raises(ValueError, match="accel_tau"):
+            refused.sample(torch.ones((1, 4, 2, 2)), steps=3, method=method)
+    else:
+        refused.sample(torch.ones((1, 4, 2, 2)), steps=3, method=method)
