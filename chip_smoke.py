@@ -4,7 +4,8 @@ class-conditional, exact and with the sampling speed modes; pixel-space
 ImageNet-64 class-conditional and CIFAR-10 unconditional), its bench,
 training (panoptic, U-ViT-L/2 latent_discrete and CIFAR-10 pixel_sde),
 sequence-parallel training, (B, H, L, D) attention and fused-LayerNorm A/B
-paths on one NVIDIA H100 and check their kernels.
+paths, evaluation (sampling, FID, the CLIP encoders) on one NVIDIA H100 and
+check their kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -156,7 +157,29 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
  18. `Trainer.fit`: 3 warm-up and 20 timed steps at batch 128, exactly 13
      forward and 13 backward kernel calls a step;
  19. one more CIFAR-10 step under torch.profiler;
- 20. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 20. evaluation: `cli.main(["eval", <config file>, "--workdir=...",
+     "--inception=..."])` in process, mscoco_uvit_small at full width and
+     depth (seeded reference-format .pth and VAE, synthetic coco data with
+     panoptic maps), 64 samples in 2 mini-batches of 32, 50 steps, CFG 1.0,
+     a seeded pt_inception-format file and reference stats made by
+     `dir_statistics` from 64 seeded PNGs: exactly 2600 kernel-1 launches
+     and none of the others, 64 images and 64 mask PNGs under the
+     contract's names, finite eval_loss_mask, eval_cnt_mask_diff and fid, an
+     eval.log line; seconds of sampling (CUDA events), of mask decode and of
+     PNG writes, of Inception (images/s) and of `sqrtm`, peak memory; a
+     6-step mini-batch of `Trainer.build_sample_fn` through kernel 1 against
+     the plain attention (images < 2e-2, mask < 5e-2); one mini-batch under
+     torch.profiler (the busy share of the sampling);
+ 21. the Inception extractor: 16 images 256 -> 299 on the card against the
+     CPU, f32 with TF32 off (< 1e-3 relative); images/s at batch 50;
+ 22. prompts: a seeded FrozenCLIPEmbedder at CLIP-L/14's shape on the card
+     against the CPU (< 1e-3 relative); GenerationPipeline.from_config(
+     "mscoco_uvit_small", clip_path=...) answers generate(prompts=[4
+     prompts]) with exactly 1300 kernel-1 launches, its latency beside a
+     contexts= request and phase 5's;
+ 23. CLIP score: a seeded CLIP-ViT-B/32 scores phase 20's 64 images against
+     64 caption files, card against CPU (< 1e-3 relative);
+ 24. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -173,11 +196,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from panopticdiffusionmodels_torch import cli
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.configs.base import d
 from panopticdiffusionmodels_torch.data.datasets import CFGLabelDataset
+from panopticdiffusionmodels_torch.evaluation import clip_score, fid, inception, runner, sampler_io
+from panopticdiffusionmodels_torch.models import clip
 from panopticdiffusionmodels_torch.models import get_nnet
 from panopticdiffusionmodels_torch.models.layers import Attention, with_gelu
+from panopticdiffusionmodels_torch.models.vae import get_model as get_vae
 from panopticdiffusionmodels_torch.ops.attention import attention_qkv, multi_head_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_attention as fa
@@ -273,6 +300,44 @@ IMAGENET64_LABELS, IMAGENET64_BLOCKS, IMAGENET64_COMPARE_STEPS = 64, 17, 10
 CIFAR_IMAGES, CIFAR_BLOCKS, CIFAR_STEPS = 32, 13, 1000
 CIFAR_WARMUP_STEPS, CIFAR_COMPARE_STEPS, CIFAR_PROFILE_STEPS = 10, 20, 100
 CIFAR_BATCH = 128
+# Evaluation (`python -m panopticdiffusionmodels_torch eval`) of mscoco_uvit_small at
+# full width and depth: 64 samples in the config's mini-batches of 32, 50 steps, CFG
+# 1.0 (26 kernel-1 launches an NFE, the 2x batch one launch); a seeded Inception and
+# reference stats of 64 seeded PNGs; the kernel-vs-plain pair at 6 steps.
+EVAL_SAMPLES, EVAL_BATCH, EVAL_COMPARE_STEPS = 64, 32, 6
+EVAL_LAUNCHES = EVAL_SAMPLES // EVAL_BATCH * LAUNCHES_PER_REQUEST
+INCEPTION_IMAGES, INCEPTION_BATCH = 16, 50
+# CLIP-L/14's text encoder (the t2i models' context) and CLIP-ViT-B/32 (the score),
+# seeded random weights at the published shapes, with a byte-level vocabulary.
+CLIP_L_TEXT = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072,
+                   num_hidden_layers=12, num_attention_heads=12, max_position_embeddings=77,
+                   hidden_act="quick_gelu", layer_norm_eps=1e-5, eos_token_id=2)
+CLIP_B32 = dict(text_config=dict(CLIP_L_TEXT, hidden_size=512, intermediate_size=2048,
+                                 num_attention_heads=8),
+                vision_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                                   num_attention_heads=12, image_size=224, patch_size=32,
+                                   hidden_act="quick_gelu", layer_norm_eps=1e-5),
+                projection_dim=512, logit_scale_init_value=2.6592)
+PROMPTS = ["a red bus driving down a city street", "two cats sleeping on a sofa",
+           "a plate of food with broccoli and rice", "a man riding a wave on a surfboard"]
+CAPTION_CORPUS = " ".join(PROMPTS) + " a dog a train a kitchen with a table and chairs"
+EVAL_CONFIG = '''"""mscoco_uvit_small at full width and depth on synthetic coco data, for
+chip_smoke.py phase 20 (seeded weights, reference stats of seeded PNGs)."""
+from panopticdiffusionmodels_torch.configs import get_config as zoo
+from panopticdiffusionmodels_torch.configs.base import d
+
+
+def get_config():
+    config = zoo("mscoco_uvit_small")
+    config.dataset = d(name="synthetic", n=128, z_shape=(32, 32, 8), clip_shape=(77, 768),
+                       mask_size=64, fid_stat={stats!r})
+    config.sample.update(n_samples={n}, mini_batch_size={bs}, sample_steps={steps})
+    config.pretrained = ""
+    config.nnet_path = {nnet!r}
+    config.autoencoder.pretrained_path = {vae!r}
+    config.num_workers = 4
+    return config
+'''
 
 
 def zero_counts() -> None:
@@ -364,8 +429,13 @@ def bound(nbytes: float, flops: float):
 def phase_environment():
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
+    try:  # the evaluation slice writes and reads PNGs through PIL, as the JAX package
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "PIL absent"
     print(f"[1] card: {card_line()} | torch {torch.__version__} | CUDA {torch.version.cuda}"
-          f" | nvcc: {nvcc} | devices {torch.cuda.device_count()}")
+          f" | nvcc: {nvcc} | devices {torch.cuda.device_count()} | {pil}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -1366,6 +1436,287 @@ def make_pixel_trainer(tmp):
     return trainer
 
 
+class timed_calls:
+    """Replace `attr` of each (owner, attr, key) by a wrapper that adds its
+    host seconds to `self.s[key]` and its calls to `self.n[key]`; restored on
+    exit."""
+
+    def __init__(self, *targets):
+        self.targets, self.s, self.n, self.saved = targets, {}, {}, []
+
+    def __enter__(self):
+        for owner, attr, key in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            self.s.setdefault(key, 0.0)
+            self.n.setdefault(key, 0)
+
+            def wrapper(*a, _fn=fn, _key=key, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.s[_key] += time.perf_counter() - t0
+                    self.n[_key] += 1
+
+            setattr(owner, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+
+
+def write_seeded_pngs(path: str, n: int, seed: int, hw: int = 256) -> None:
+    """n smooth random RGB images (noise upsampled 16x) as PNGs, named 0..n-1."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    low = torch.from_numpy(rng.uniform(size=(n, 3, hw // 16, hw // 16)).astype(np.float32))
+    images = F.interpolate(low, size=(hw, hw), mode="bilinear").permute(0, 2, 3, 1).numpy()
+    for i, img in enumerate(images):
+        sampler_io.save_png(img, os.path.join(path, f"{i}.png"))
+
+
+def write_eval_assets(tmp: str) -> dict:
+    """Seeded files of phase 20: the network as a reference-format .pth, the
+    VAE, a pt_inception-format state dict (with the `fc.*` head the loader
+    drops) and reference stats from 64 seeded PNGs through that Inception."""
+    config = get_config("mscoco_uvit_small")
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("nnet", "nnet_ema.pth"), ("vae", "autoencoder_kl.pth"),
+        ("inception", "pt_inception-2015-12-05.pth"), ("stats", "fid_stats_ref.npz"),
+        ("config", "mscoco_uvit_small_eval.py"))}
+    write_pretrained(paths["nnet"], config)
+    torch.manual_seed(3)
+    torch.save(get_vae(scale_factor=config.autoencoder.scale_factor).state_dict(), paths["vae"])
+    sd = {k: torch.from_numpy(v) for k, v in inception.random_state_dict(0).items()}
+    sd.update({"fc.weight": torch.zeros(1008, 2048), "fc.bias": torch.zeros(1008)})
+    torch.save(sd, paths["inception"])
+    write_seeded_pngs(os.path.join(tmp, "reference"), EVAL_SAMPLES, seed=11)
+    extractor = inception.make_extractor(inception.load_inception_weights(paths["inception"]))
+    fid.save_stats(paths["stats"], *fid.dir_statistics(os.path.join(tmp, "reference"),
+                                                        extractor))
+    with open(paths["config"], "w") as f:
+        f.write(EVAL_CONFIG.format(stats=paths["stats"], n=EVAL_SAMPLES, bs=EVAL_BATCH,
+                                   steps=STEPS, nnet=paths["nnet"], vae=paths["vae"]))
+    return paths
+
+
+def phase_eval(tmp: str):
+    """`cli.main(["eval", ...])` in process on mscoco_uvit_small at full width
+    and depth: 64 samples in 2 mini-batches of 32, 50 steps, CFG 1.0, the
+    trainer's sampler through kernel 1, the seeded VAE decode, sample2dir,
+    Inception on the card and FID against the seeded stats.  The launch
+    counters are zeroed just before and read just after: exactly 2600
+    kernel-1 launches and none of the others.  Then a 6-step mini-batch of
+    `build_sample_fn` through kernel 1 against the plain attention on the
+    same draws (images < 2e-2, mask < 5e-2), and one mini-batch under the
+    profiler."""
+    paths = write_eval_assets(tmp)
+    wd = os.path.join(tmp, "eval")
+    spans, captured = [], {}
+    build = Trainer.build_sample_fn
+
+    def timed_build(self, *a, **k):  # CUDA events around each sampler call
+        fn = build(self, *a, **k)
+        captured["trainer"] = self
+
+        def sample_fn(*fa, **fk):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*fa, **fk)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        return sample_fn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Trainer.build_sample_fn = timed_build
+    try:
+        with timed_calls((Trainer, "__init__", "trainer"),
+                         (runner, "_load_weights", "load_weights"),
+                         (inception, "load_inception_weights", "inception_load"),
+                         (inception, "make_extractor", "inception_load"),
+                         (sampler_io, "save_uint8_png", "write"),
+                         (sampler_io, "mask_ids", "decode"),
+                         (sampler_io, "color_map", "decode"),
+                         (sampler_io, "eval_mask_cnt", "decode"),
+                         (fid, "dir_statistics", "inception"),
+                         (fid.linalg, "sqrtm", "sqrtm")) as t:
+            zero_counts()
+            t0 = time.perf_counter()
+            metrics = cli.main(["eval", f"--config={paths['config']}", f"--workdir={wd}",
+                                f"--inception={paths['inception']}"])
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        Trainer.build_sample_fn = build
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert counts == {k: EVAL_LAUNCHES if k == "fused_attention_qkv" else 0
+                      for k in counts}, counts
+    assert set(metrics) == {"eval_loss_mask", "eval_cnt_mask_diff", "fid"}, metrics
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    names = {f"{i}.png" for i in range(EVAL_SAMPLES)}
+    for sub in ("samples", "mask"):
+        assert set(os.listdir(os.path.join(wd, sub))) == names, sub
+    with open(os.path.join(wd, "eval.log")) as f:
+        log = f.read()
+    assert f"fid{EVAL_SAMPLES}=" in log, log
+    sampling_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    result = dict(samples=EVAL_SAMPLES, mini_batch=EVAL_BATCH, steps=STEPS, metrics=metrics,
+                  launches=counts["fused_attention_qkv"], wall_s=wall,
+                  sampling_device_s=sampling_s, sampler_calls=len(spans),
+                  mask_decode_s=t.s["decode"], png_write_s=t.s["write"],
+                  inception_s=t.s["inception"],
+                  inception_images_per_s=EVAL_SAMPLES / t.s["inception"],
+                  sqrtm_s=t.s["sqrtm"], sqrtm_calls=t.n["sqrtm"],
+                  trainer_init_s=t.s["trainer"], load_weights_s=t.s["load_weights"],
+                  inception_load_s=t.s["inception_load"],
+                  # host seconds inside none of the timed calls: enqueueing the
+                  # sampler, the context stream, the logs and whatever else
+                  untimed_host_s=wall - sum(t.s.values()),
+                  max_memory_allocated_gb=peak)
+    print(f"[20] evaluation: {json.dumps(result)}")
+
+    trainer = captured["trainer"]
+    pipe = trainer.sample_pipeline()
+    ctx = np.stack([trainer.dataset.test[i][1] for i in range(EVAL_BATCH)])
+    z, m0 = runner._draw(trainer, EVAL_BATCH, torch.Generator(device="cuda").manual_seed(29))
+    fn = trainer.build_sample_fn(EVAL_COMPARE_STEPS)
+    outs = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(pipe.nnet, impl)
+        outs[impl] = fn(ctx, z, m0)
+    set_attn_impl(pipe.nnet, "infer")
+    for i, (name, bar) in enumerate((("images", 2e-2), ("mask", 5e-2))):
+        a, b = outs["kernel"][i], outs["plain"][i]
+        rel = rel_dev(a, b)
+        print(f"[20] {EVAL_COMPARE_STEPS}-step evaluation mini-batch of {EVAL_BATCH}, {name}: "
+              f"kernel vs plain rel {rel:.2e} (bar {bar:.0e})")
+        assert torch.isfinite(a).all() and rel < bar, (name, rel)
+    assert outs["kernel"][0].shape == (EVAL_BATCH, 256, 256, 3), outs["kernel"][0].shape
+    fn = trainer.build_sample_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(ctx, z, m0)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    busy = device_profile(lambda: fn(ctx, z, m0), "20", f"evaluation mini-batch of {EVAL_BATCH}",
+                          batch_s)
+    result.update(unprofiled_batch_s=batch_s, device_busy_ms=busy,
+                  device_busy_share=busy / (batch_s * 1e3))
+    print(f"[20] sampling busy share: {busy / (batch_s * 1e3):.1%} of {batch_s:.3f} s")
+    del trainer, pipe, captured
+    torch.cuda.empty_cache()
+    return paths, os.path.join(wd, "samples"), result
+
+
+def phase_inception(paths):
+    """The Inception extractor on the card against the same module on the CPU,
+    f32 with TF32 off: 16 images 256 -> 299 (relative deviation < 1e-3);
+    images/s at batch 50 (CUDA events)."""
+    x = np.random.default_rng(31).uniform(size=(INCEPTION_IMAGES, 256, 256, 3))
+    x = x.astype(np.float32)
+    card = inception.make_extractor(inception.load_inception_weights(paths["inception"]))
+    cpu = inception.make_extractor(inception.load_inception_weights(paths["inception"]), "cpu")
+    a, b = card(x), cpu(x)
+    rel = rel_dev(a.cpu(), b)
+    print(f"[21] Inception pool3 of {INCEPTION_IMAGES} images 256 -> 299, card vs CPU: rel "
+          f"{rel:.2e} (bar 1e-3)")
+    assert a.shape == (INCEPTION_IMAGES, 2048) and torch.isfinite(a).all() and rel < 1e-3, rel
+    batch = torch.rand((INCEPTION_BATCH, 256, 256, 3), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(37))
+    ms = cuda_ms(lambda: card(batch), iters=10, warmup=2)
+    rate = INCEPTION_BATCH / ms * 1e3
+    print(f"[21] Inception at batch {INCEPTION_BATCH} (256 -> 299, f32, TF32 off): {ms:.2f} ms "
+          f"a batch, {rate:.0f} images/s")
+    return dict(rel=rel, batch_ms=ms, images_per_s=rate)
+
+
+def write_clip_dir(path: str, config: dict, seed: int, text_only: bool) -> None:
+    """A local CLIP directory: byte-level vocab.json / merges.txt, config.json
+    and seeded random pytorch_model.bin (a text tower, or a whole CLIPModel)."""
+    n = clip.write_synthetic_vocab(path, CAPTION_CORPUS, 256)
+    assert n < 49408, n
+    torch.manual_seed(seed)
+    if text_only:
+        sd = {f"text_model.{k}": v for k, v in clip.CLIPTextTransformer(config).state_dict().items()}
+    else:
+        sd = clip.CLIPModel(config).state_dict()
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+
+
+def phase_prompts(tmp: str, contexts_latency: float):
+    """A FrozenCLIPEmbedder at CLIP-L/14's shape (12 layers, width 768, 12
+    heads, vocabulary 49,408, 77 positions) on the card against the CPU
+    (last_hidden_state < 1e-3 relative); then
+    GenerationPipeline.from_config("mscoco_uvit_small", clip_path=...)
+    answers generate(prompts=[4 prompts]) at 50 steps with the counters zeroed
+    just before and read just after: exactly 1300 kernel-1 launches."""
+    path = os.path.join(tmp, "clip-vit-large-patch14")
+    write_clip_dir(path, CLIP_L_TEXT, seed=41, text_only=True)
+    a = clip.FrozenCLIPEmbedder(path).encode(PROMPTS)
+    b = clip.FrozenCLIPEmbedder(path, device="cpu").encode(PROMPTS)
+    rel = rel_dev(a.cpu(), b)
+    print(f"[22] CLIP-L/14 text encoder, {len(PROMPTS)} prompts: card vs CPU rel {rel:.2e} "
+          "(bar 1e-3)")
+    assert a.shape == (len(PROMPTS), 77, 768) and torch.isfinite(a).all() and rel < 1e-3, rel
+    pipe = GenerationPipeline.from_config("mscoco_uvit_small", seed=0, clip_path=path)
+    pipe.generate(prompts=PROMPTS, steps=3)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    images, ids = pipe.generate(prompts=PROMPTS, steps=STEPS, seed=3)
+    latency = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {k: LAUNCHES_PER_REQUEST if k == "fused_attention_qkv" else 0
+                      for k in counts}, counts
+    assert images.shape == (len(PROMPTS), 256, 256, 3) and np.isfinite(images).all()
+    assert ids.shape == (len(PROMPTS), 64, 64, 1)
+    ctx = pipe.encode_prompts(PROMPTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.generate(contexts=ctx, steps=STEPS, seed=3)
+    same_pipe = time.perf_counter() - t0
+    encode = cuda_ms(lambda: pipe.encode_prompts(PROMPTS), iters=5, warmup=1)
+    result = dict(prompts=len(PROMPTS), steps=STEPS, launches=counts["fused_attention_qkv"],
+                  prompts_latency_s=latency, contexts_latency_same_pipeline_s=same_pipe,
+                  phase5_contexts_latency_s=contexts_latency, encode_ms=encode, rel=rel)
+    print(f"[22] prompts request: {json.dumps(result)}")
+    return counts["fused_attention_qkv"], result
+
+
+def phase_clip_score(tmp: str, sample_dir: str):
+    """A random CLIP-ViT-B/32 (vision 12 layers of 768, patch 32 at 224; text
+    12 layers of 512; projection 512) scores phase 20's 64 images against 64
+    caption files (`{i}_0_text.txt`): a finite score, card vs CPU < 1e-3
+    relative."""
+    path = os.path.join(tmp, "clip-vit-base-patch32")
+    write_clip_dir(path, CLIP_B32, seed=43, text_only=False)
+    captions = os.path.join(tmp, "captions")
+    os.makedirs(captions)
+    words = CAPTION_CORPUS.split()
+    rng = np.random.default_rng(47)
+    for i in range(EVAL_SAMPLES):
+        with open(os.path.join(captions, f"{i}_0_text.txt"), "w") as f:
+            f.write(" ".join(rng.choice(words, size=8)) + "\n")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = clip_score.clip_score_from_dirs(sample_dir, captions, version=path)
+    card_s = time.perf_counter() - t0
+    cpu = clip_score.clip_score_from_dirs(sample_dir, captions, version=path, device="cpu")
+    rel = abs(card - cpu) / abs(cpu)
+    print(f"[23] CLIP score (ViT-B/32, random) of {EVAL_SAMPLES} samples: card {card:.6f}, "
+          f"CPU {cpu:.6f}, rel {rel:.2e} (bar 1e-3), {card_s:.2f} s on the card with the load")
+    assert np.isfinite(card) and rel < 1e-3, (card, cpu)
+    return dict(score=card, cpu_score=cpu, rel=rel, card_s=card_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -1433,6 +1784,14 @@ def main() -> int:
                                   "fused_attention_qkv_vjp": CIFAR_BLOCKS})
         phase_train_profile(pixel_trainer, pixel_step_s, "19")
         del pixel_trainer
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_paths, sample_dir, eval_result = phase_eval(tmp)
+        phase_inception(eval_paths)
+        prompt_launches, _ = phase_prompts(tmp, latency)
+        torch.cuda.empty_cache()
+        phase_clip_score(tmp, sample_dir)
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -1459,7 +1818,10 @@ def main() -> int:
                           f"CIFAR-10 S/2 pixel_sde training ({TIMED_STEPS} steps)":
                               pixel_counts["fused_attention_qkv"],
                           "A/B chain, shipped and fused arms (B=32, 64)":
-                              chain_counts["fused_attention_qkv"]},
+                              chain_counts["fused_attention_qkv"],
+                          f"evaluation ({EVAL_SAMPLES} samples, mini-batches of {EVAL_BATCH})":
+                              eval_result["launches"],
+                          f"prompts request ({len(PROMPTS)} prompts)": prompt_launches},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,

@@ -1,4 +1,4 @@
-"""`python -m panopticdiffusionmodels_torch train --config=...` (see cli.py)."""
+"""`python -m panopticdiffusionmodels_torch train|eval|sample --config=...` (see cli.py)."""
 from .cli import main
 
 if __name__ == "__main__":

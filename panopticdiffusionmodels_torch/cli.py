@@ -1,13 +1,19 @@
 """Command-line entry point of the port:
 
-    python -m panopticdiffusionmodels_torch train --config=<zoo name|file.py>
+    python -m panopticdiffusionmodels_torch train|eval|sample --config=<zoo name|file.py>
         [--workdir=DIR] [--config.a.b=value ...] [--device=cuda|cpu]
 
-Port of `panopticdiffusionmodels_tpu/cli.py::main_train` (reference
-`train.py:211-263`): a config from the port's zoo or a python file with
-`get_config()`, `--config.` overrides (python literals, else strings), and a
-workdir derived from the config name and the overridden fields.  Evaluation
-and sample-grid callbacks come with the evaluation slice.
+Port of `panopticdiffusionmodels_tpu/cli.py` (reference `train.py:211-263`):
+a config from the port's zoo or a python file with `get_config()`,
+`--config.` overrides (python literals, else strings), and a workdir
+derived from the config name and the overridden fields.  `train` runs
+`Trainer.fit` with the FID-gated checkpoint callback and the sample-grid
+callback (neither runs under `mesh.sp > 1`, which cannot sample yet: it
+checkpoints at every save_interval); `eval` samples `config.sample.n_samples` into workdir/samples (and
+workdir/mask) and takes FID when the stats file and the Inception weights
+(`--inception`, by default `evaluation/fid.py::INCEPTION_WEIGHTS`) exist;
+`sample` writes one mini-batch.  Weights to evaluate: `--config.nnet_path=<reference .pth or a
+checkpoint in a ckpts directory>`, else the workdir's own checkpoints.
 
 Sequence-parallel training on several cards, one process per sp rank:
 
@@ -67,7 +73,7 @@ def apply_overrides(config, argv: List[str]) -> List[str]:
 
 
 def _parse(argv):
-    opts = {"config": None, "workdir": None, "device": "cuda"}
+    opts = {"config": None, "workdir": None, "device": "cuda", "inception": None}
     rest = []
     it = iter(argv)
     for arg in it:
@@ -77,9 +83,9 @@ def _parse(argv):
         else:
             rest.append(arg)
     if opts["config"] is None:
-        raise SystemExit("usage: python -m panopticdiffusionmodels_torch train "
+        raise SystemExit("usage: python -m panopticdiffusionmodels_torch train|eval|sample "
                          "--config=<zoo name|file.py> [--workdir=...] [--config.k=v ...] "
-                         "[--device=cuda|cpu]")
+                         "[--device=cuda|cpu] [--inception=<pt_inception .pth>]")
     return opts, rest
 
 
@@ -100,12 +106,14 @@ def init_distributed(device: str) -> str:
     return f"cuda:{local}"
 
 
-def main_train(argv: List[str]):
+def _run(argv: List[str], action, hparams: Optional[str] = None):
+    """Parse, configure, log to the console and workdir/output.log, and return
+    action(config, workdir, device, inception).  The run is named `hparams`,
+    or by default after the overridden fields."""
     opts, rest = _parse(argv)
-    device = init_distributed(opts["device"])
     config = load_config(opts["config"])
-    hparams = apply_overrides(config, rest)
-    config.hparams = "-".join(hparams) if hparams else "default"
+    overrides = apply_overrides(config, rest)
+    config.hparams = hparams or ("-".join(overrides) if overrides else "default")
     wd = opts["workdir"] or os.path.join("results", config.get("config_name", "run"),
                                          config.hparams)
     config.workdir = wd
@@ -119,15 +127,49 @@ def main_train(argv: List[str]):
     root.addHandler(log_file)
     try:
         logging.info(f"workdir: {wd}")
-        from .train.trainer import Trainer
+        from .evaluation import runner
 
-        return Trainer(config, wd, device=device).fit()
+        return action(config, wd, opts["device"], opts["inception"] or runner.INCEPTION_WEIGHTS)
     finally:
         root.removeHandler(log_file)
         log_file.close()
 
 
-COMMANDS = {"train": main_train}
+def _train(config, workdir, device, inception):
+    from .evaluation import runner
+    from .train.trainer import Trainer
+
+    trainer = Trainer(config, workdir, device=init_distributed(device))
+    return trainer.fit(
+        eval_callback=runner.make_fid_gated_callback(inception_path=inception),
+        vis_callback=runner.make_vis_callback(sample_steps=config.sample.sample_steps))
+
+
+def _evaluate(config, workdir, device, inception):
+    from .evaluation import runner
+
+    return runner.evaluate(config, workdir, inception_path=inception, device=device)
+
+
+def _sample(config, workdir, device, inception):
+    from .evaluation import runner
+
+    return runner.sample_only(config, workdir, inception_path=inception, device=device)
+
+
+def main_train(argv: List[str]):
+    return _run(argv, _train)
+
+
+def main_eval(argv: List[str]):
+    return _run(argv, _evaluate, hparams="eval")
+
+
+def main_sample(argv: List[str]):
+    return _run(argv, _sample, hparams="sample")
+
+
+COMMANDS = {"train": main_train, "eval": main_eval, "sample": main_sample}
 
 
 def main(argv: Optional[List[str]] = None):

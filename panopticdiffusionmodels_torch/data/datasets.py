@@ -48,6 +48,11 @@ class DatasetFactory:
     def has_label(self) -> bool:
         return True
 
+    @property
+    def fid_stat(self) -> Optional[str]:
+        """The reference FID stats file of the dataset (JAX `fid_stat`), or None."""
+        return None
+
 
 class UnlabeledDataset:
     """Only the first field of each sample (reference `datasets.py:19-28`)."""
@@ -152,6 +157,10 @@ class MSCOCO256Features(DatasetFactory):
         else:
             self.train = train
 
+    @property
+    def fid_stat(self):
+        return "assets/fid_stats/fid_stats_mscoco256_val.npz"
+
 
 class FeatureDataset:
     """ImageNet latent-moment features: each `{i}.npy` pickles a (moments CHW,
@@ -221,6 +230,10 @@ class ImageNetFeatures(DatasetFactory):
             self.train = train
         self.test = train
 
+    @property
+    def fid_stat(self):
+        return f"assets/fid_stats/fid_stats_imagenet{self.resolution}_guided_diffusion.npz"
+
 
 # --- pixel-space images ----------------------------------------------------
 
@@ -281,6 +294,10 @@ class CIFAR10(DatasetFactory):
         self.test = ArrayImageDataset(x_test, y_test)
         assert len(self.train) == 50000, len(self.train)
 
+    @property
+    def fid_stat(self):
+        return "assets/fid_stats/fid_stats_cifar10_train_pytorch.npz"
+
 
 class FolderImageDataset:
     """Image files centre-cropped to a square and bicubic-resized to
@@ -332,6 +349,10 @@ class CelebA(DatasetFactory):
     def has_label(self):
         return False
 
+    @property
+    def fid_stat(self):
+        return "assets/fid_stats/fid_stats_celeba64_train_50000_ddim.npz"
+
 
 class ImageNetRaw(DatasetFactory):
     """Class-labelled ImageNet from a `train/<class>/*.JPEG` tree (reference
@@ -362,6 +383,10 @@ class ImageNetRaw(DatasetFactory):
         self.train = train
         self.test = FolderImageDataset(paths[:512], resolution, labels=labels[:512],
                                        random_flip=False)
+
+    @property
+    def fid_stat(self):
+        return f"assets/fid_stats/fid_stats_imagenet{self.resolution}_guided_diffusion.npz"
 
 
 class SyntheticDataset:
@@ -405,12 +430,13 @@ class Synthetic(DatasetFactory):
     """Synthetic data of a task's shapes, the same arrays as the JAX package's
     `Synthetic` for the same seed: `style` 'coco' (moments, context[,
     panoptic]), 'imagenet' (moments, label) or 'pixels' (image, label), labels
-    in [0, num_classes)."""
+    in [0, num_classes); `fid_stat` names a reference stats file."""
 
     def __init__(self, n: int = 256, z_shape=(32, 32, 8), clip_shape=(77, 768),
                  mask_size: int = 64, panoptic: bool = True, seed: int = 0,
-                 style: str = "coco", num_classes: int = 10):
+                 style: str = "coco", num_classes: int = 10, fid_stat: Optional[str] = None):
         super().__init__()
+        self._fid_stat = fid_stat
         if style == "coco":
             shapes, int_fields = [z_shape, clip_shape], ()
             if panoptic:
@@ -423,6 +449,12 @@ class Synthetic(DatasetFactory):
         else:
             raise ValueError(style)
         self.test = self.train
+
+    @property
+    def fid_stat(self):
+        """The reference stats file to score samples against, when given (a
+        port extension for smoke runs; the JAX package's has none)."""
+        return self._fid_stat
 
 
 def get_dataset(name: str, **kwargs) -> DatasetFactory:

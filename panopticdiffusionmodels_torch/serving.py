@@ -11,6 +11,10 @@ the discrete schedule, and the continuous VP-SDE branch of the `pixel_sde` /
                                           vae_path="autoencoder_kl.pth")
     images, masks = pipe.generate(contexts=clip_contexts, steps=50)
 
+    pipe = GenerationPipeline.from_config("mscoco_uvit_small", nnet_path=...,
+                                          clip_path="assets/clip-vit-large-patch14")
+    images, masks = pipe.generate(prompts=["a bus in a city"], steps=50)
+
     pipe = GenerationPipeline.from_config("imagenet256_uvit_large")
     images = pipe.generate(labels=[207, 360, 387, 974], steps=50)
 
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from .configs import CONFIG_NAMES, get_config
-from .diffusion.analog_bits import analog_to_ints
+from .diffusion.analog_bits import analog_to_ints, ints_to_analog
 from .diffusion.cfg import make_cfg_class_cond, make_cfg_t2i
 from .diffusion.schedule import Schedule, stable_diffusion_beta_schedule
 from .diffusion.sde import ODE, VPSDE, ReverseSDE, ScoreModel
@@ -57,6 +61,7 @@ from .samplers.dpm_solver import DPMSolver
 from .samplers.euler_maruyama import euler_maruyama
 from .samplers.noise_schedule import NoiseScheduleVP
 from .samplers.speed_budget import check_speed_modes
+from .utils.misc import one_deep
 from .utils.weights import load_torch_state_dict, reference_nnet_state_dict
 
 log = logging.getLogger(__name__)
@@ -76,7 +81,7 @@ class GenerationPipeline:
     generation (`uvit` without classes)."""
 
     def __init__(self, config, nnet: torch.nn.Module, vae: Optional[torch.nn.Module] = None,
-                 empty_context=None, device="cuda"):
+                 empty_context=None, device="cuda", clip_path: Optional[str] = None):
         name = config.nnet.name
         if name not in ("uvit", "uvit_t2i"):
             raise NotImplementedError(f"serving {name!r} comes with a later slice of the port")
@@ -110,6 +115,8 @@ class GenerationPipeline:
         self._checked_knobs = set()  # speed-mode knob sets already checked
         self.last_real_evals = 0  # network evals of the last request's sampler
         self.empty_context = None  # the unconditional CLIP context of a t2i model
+        self.clip_path = clip_path  # a local CLIP text encoder directory, for prompts=
+        self._clip = None
         if self.is_t2i:
             if empty_context is None:
                 if config.sample.get("cfg", False):
@@ -126,10 +133,12 @@ class GenerationPipeline:
     @classmethod
     def from_config(cls, config_or_name, nnet_path: Optional[str] = None,
                     vae_path: Optional[str] = None, empty_context_path: Optional[str] = None,
-                    seed: int = 0, device="cuda") -> "GenerationPipeline":
+                    seed: int = 0, device="cuda",
+                    clip_path: Optional[str] = None) -> "GenerationPipeline":
         """Build the network (and the VAE when the config has one) from seeded
         random weights, then load reference-format `.pth` files strictly when
-        given."""
+        given.  `clip_path`, a local CLIP-L/14 text encoder directory
+        (`models/clip.py::FrozenCLIPEmbedder`), lets `generate` take prompts."""
         config = (get_config(config_or_name)
                   if isinstance(config_or_name, str) and config_or_name in CONFIG_NAMES
                   else config_or_name)
@@ -152,20 +161,25 @@ class GenerationPipeline:
         empty_context = None
         if empty_context_path and os.path.exists(empty_context_path):
             empty_context = np.load(empty_context_path)
-        return cls(config, nnet, vae, empty_context, device)
+        return cls(config, nnet, vae, empty_context, device, clip_path=clip_path)
 
     # --- generation ------------------------------------------------------
 
     @torch.no_grad()
     def sample(self, z: torch.Tensor, m0: Optional[torch.Tensor], cond: Optional[torch.Tensor],
-               steps: Optional[int] = None, generator: Optional[torch.Generator] = None):
+               steps: Optional[int] = None, generator: Optional[torch.Generator] = None,
+               panoptic: Optional[torch.Tensor] = None, decode: bool = True):
         """The sampler on given noise: z (n, C, h, w) and m0 (n, mask_bits,
         mask_size, mask_size) or None, both f32 on the pipeline's device;
         `cond` is the CLIP context (n, 77, clip_dim), the labels (n,) of a
         class-conditional model, or None for an unconditional one;
-        `generator` draws the noise of Euler-Maruyama's steps.  Returns
-        (decoded images (n, 3, H, W), or the sample without a VAE, pred_mask
-        or None)."""
+        `generator` draws the noise of Euler-Maruyama's steps.  `panoptic`,
+        integer ground-truth maps (n, mask_size, mask_size, 1), conditions a
+        `nnet.use_ground_truth` model on the true mask (JAX
+        `Trainer.build_sample_fn`, l.626-640): the mask input is their analog
+        bits in place of m0, the network echoes it, and the solver hands it on
+        unchanged (`update_mask=False`).  Returns (decoded images (n, 3, H,
+        W), or the sample without a VAE or `decode`, pred_mask or None)."""
         steps = steps or self.config.sample.sample_steps
         sample_cfg = self.config.sample
         scale = float(sample_cfg.get("scale", 0.0))
@@ -184,7 +198,8 @@ class GenerationPipeline:
             self._checked_knobs.add(knobs)
         if self.continuous:
             z0 = self._sample_continuous(z, cond, steps, generator)
-            return (self.vae.decode(z0) if self.vae is not None else z0), None
+            return (self.vae.decode(z0) if self.vae is not None and decode else z0), None
+        use_gt = False
         if self.class_cond:
             cfg_fn = make_cfg_class_cond(lambda xx, tt, yy: self.nnet(xx, tt, yy),
                                          null_label=self.config.nnet.num_classes - 1,
@@ -193,8 +208,14 @@ class GenerationPipeline:
             def model_fn(xx, tt, mask_token=None, cfg_on=True):
                 return cfg_fn(xx, tt * self.N, cond, cfg_on=cfg_on)
         elif self.is_t2i:
+            use_gt = (panoptic is not None and self.panoptic
+                      and bool(self.config.nnet.get("use_ground_truth", False)))
+            if use_gt:
+                m0 = ints_to_analog(torch.as_tensor(panoptic, device=self.device),
+                                    n=self.config.nnet.mask_bits).permute(0, 3, 1, 2)
             cfg_fn = make_cfg_t2i(
-                lambda xx, tt, cc, mask_token=None: self.nnet(xx, tt, cc, mask_token=mask_token),
+                lambda xx, tt, cc, mask_token=None: self.nnet(
+                    xx, tt, cc, mask_token=mask_token, use_ground_truth=use_gt),
                 self.empty_context, scale=scale, enabled=enabled)
 
             def model_fn(xx, tt, mask_token=None, cfg_on=True, **mkw):
@@ -210,10 +231,10 @@ class GenerationPipeline:
         solver = DPMSolver(model_fn, self.ns, predict_x0=True, accel_tau=accel_tau,
                            cfg_interval=cfg_interval, mask_guidance_hold=hold)
         out = solver.sample(z, steps=steps, eps=1.0 / self.N, T=1.0, order=3,
-                            method="fast", mask_token=m0)
+                            method="fast", mask_token=m0, update_mask=not use_gt)
         self.last_real_evals = solver.real_evals
         z0, pred_mask = out if m0 is not None else (out, None)
-        if self.vae is not None:
+        if self.vae is not None and decode:
             z0 = self.vae.decode(z0)
         return z0, pred_mask
 
@@ -270,15 +291,30 @@ class GenerationPipeline:
             raise ValueError("labels= is for class-conditional models; a text-to-image "
                              "model takes contexts=")
         if prompts is not None:
-            raise NotImplementedError(
-                "prompts= needs the frozen CLIP text encoder, which comes with a later "
-                "slice of the port; pass pre-extracted CLIP contexts= instead")
+            contexts = self.encode_prompts(prompts)
         if contexts is not None:
-            ctx = torch.as_tensor(np.asarray(contexts, np.float32), device=self.device)
+            ctx = (contexts.float() if torch.is_tensor(contexts) else
+                   torch.as_tensor(np.asarray(contexts, np.float32))).to(self.device)
             return ctx, ctx.shape[0]
         if n is None:
             raise ValueError("generate needs contexts= or n=")
         return self.empty_context.expand(n, *self.empty_context.shape[-2:]), n
+
+    def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
+        """Prompts -> CLIP contexts (n, num_clip_token, clip_dim) on the
+        device, through a FrozenCLIPEmbedder built from `clip_path` on first
+        use (JAX `serving.py:375-385`)."""
+        if self._clip is None:
+            if not self.clip_path:
+                raise ValueError("prompts= needs clip_path=<local CLIP text encoder directory> "
+                                 "(GenerationPipeline.from_config(..., clip_path=...)); or "
+                                 "pass pre-extracted CLIP contexts=")
+            from .models.clip import FrozenCLIPEmbedder
+
+            self._clip = FrozenCLIPEmbedder(self.clip_path,
+                                            max_length=self.config.nnet.num_clip_token,
+                                            device=self.device)
+        return self._clip.encode(list(prompts))
 
     def _postprocess(self, images, pred_mask):
         """-> numpy NHWC images in [0, 1] (+ integer panoptic-id maps (B, H, W, 1))."""
@@ -308,13 +344,12 @@ class GenerationPipeline:
         batch i is copied back and decoded on the host; batch i draws its noise
         from a generator seeded by (seed, i)."""
         steps = steps or self.config.sample.sample_steps
-        pending = None
-        for i, kw in enumerate(batches):
+
+        def dispatch(item):
+            i, kw = item
             cond, n = self._cond(kw.get("prompts"), kw.get("contexts"), kw.get("labels"),
                                  kw.get("n"))
-            out = self._run(cond, n, _batch_seed(seed, i), steps)
-            if pending is not None:
-                yield self._postprocess(*pending)
-            pending = out
-        if pending is not None:
-            yield self._postprocess(*pending)
+            return self._run(cond, n, _batch_seed(seed, i), steps)
+
+        for _, out in one_deep(enumerate(batches), dispatch):
+            yield self._postprocess(*out)

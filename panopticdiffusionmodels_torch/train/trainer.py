@@ -23,7 +23,12 @@ images (`pixel_sde`, unconditional or class-conditional, reference
   * `fit` keeps a bounded queue of in-flight steps and reads a step's loss
     only once `max_inflight_steps` newer steps are queued, so the host does
     not wait on the card every step; it logs to `workdir/metrics.jsonl` and
-    checkpoints to `workdir/ckpts/{step}.ckpt`;
+    checkpoints to `workdir/ckpts/{step}.ckpt`, or hands the checkpoint to
+    the eval callback (`evaluation/runner.py`, FID-gated), and writes
+    sample grids through the vis callback;
+  * `build_sample_fn` samples with the EMA weights through
+    `serving.GenerationPipeline.sample` (kernel 1, no gradient), decoding
+    with the config's VAE when its file exists;
   * `mesh.sp > 1` (the other axes at 1) trains sequence-parallel, as the
     JAX trainer does: the model's attention becomes the ring
     (`attn_impl='ring'`) over the context `parallel.mesh.from_mesh` builds.
@@ -55,7 +60,7 @@ import logging
 import os
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -70,6 +75,7 @@ from ..diffusion.schedule import (
 from ..diffusion.sde import VPSDE, ScoreModel
 from ..diffusion.sde import l_simple as l_simple_continuous
 from ..models import get_nnet
+from ..models.vae import get_model as get_vae
 from ..models.vae import sample_from_moments
 from ..parallel.mesh import from_mesh
 from ..utils.weights import load_torch_state_dict, reference_nnet_state_dict
@@ -190,6 +196,15 @@ class Trainer:
             self.schedule = Schedule(stable_diffusion_beta_schedule())
         self.generator = torch.Generator(device=self.device)
         self.compute_dtype = _DTYPES[config.get("compute_dtype", "bfloat16")]
+        # The frozen VAE that decodes samples, as the JAX trainer's: loaded when
+        # its file exists, else samples stay latents (training reads moments).
+        self.vae = None
+        ae_path = config.get("autoencoder", {}).get("pretrained_path", "")
+        if ae_path and os.path.exists(ae_path):
+            self.vae = get_vae(scale_factor=config.autoencoder.get("scale_factor", 0.18215))
+            self.vae.load_state_dict(load_torch_state_dict(ae_path), strict=True)
+            self.vae.to(self.device).eval().requires_grad_(False)
+        self._pipeline = None  # the sampling pipeline, built by the first sampler
 
     # --- loss and step ------------------------------------------------------
 
@@ -309,6 +324,82 @@ class Trainer:
         self.state.apply_gradients(ema_rate=self.config.get("ema_rate", 0.9999))
         return metrics
 
+    # --- sampling -----------------------------------------------------------
+
+    def sample_weights(self):
+        """(EMA parameters, VAE or None): what the sampler runs with."""
+        return self.state.ema, self.vae
+
+    def sample_pipeline(self):
+        """The `serving.GenerationPipeline` that samples for this trainer: a
+        sampling copy of the network with `attn_impl='infer'` (kernel 1 with
+        no gradient, as JAX's `clone(attn_impl="infer")`), in the config's
+        compute dtype, the trainer's VAE, and the dataset's empty context for
+        CFG.  Built once; `build_sample_fn` copies the EMA weights into it at
+        every call."""
+        if self.sp is not None:
+            raise NotImplementedError("sampling from a sequence-parallel trainer comes with "
+                                      "the distributed slice")
+        if self._pipeline is None:
+            from ..serving import GenerationPipeline
+
+            kwargs = dict(self.config.nnet)
+            kwargs.update(attn_impl="infer", use_checkpoint=False)
+            nnet = get_nnet(kwargs.pop("name"), **kwargs)
+            empty = getattr(self.dataset, "empty_context", None)
+            self._pipeline = GenerationPipeline(self.config, nnet, self.vae, empty,
+                                                device=self.device)
+        return self._pipeline
+
+    def build_sample_fn(self, sample_steps: Optional[int] = None,
+                        decode: bool = True) -> Callable:
+        """JAX `Trainer.build_sample_fn` (l.446-606) on
+        `serving.GenerationPipeline.sample`: returns
+        sample_fn(cond, z, m0=None, panoptic=None, generator=None).
+
+        `cond` is the CLIP context (n, L, clip_dim), the labels (n,) or None;
+        `z` the initial draw, channel-last (n, h, w, c) as the JAX sampler's
+        `jax.random.normal(k1, (n, *z_shape))`, and `m0` the panoptic mask's
+        (n, mask_size, mask_size, mask_bits); `panoptic`, integer maps (n,
+        mask_size, mask_size, 1), runs a `nnet.use_ground_truth` model on the
+        true mask; `generator` draws Euler-Maruyama's step noise.  At each call
+        the sampling copy takes the EMA weights of that moment.  Returns the
+        images channel-last in [-1, 1] (or the latents without a VAE), and
+        the mask's analog bits (n, mask_size, mask_size, mask_bits) for a
+        panoptic model, as tensors on the trainer's device (not synchronised);
+        `decode=False` returns the latents without the VAE.
+        Branches: continuous pixel_sde / latent_sde, latent_discrete with
+        class CFG, t2i_discrete with the speed modes and the mask hold; pndm
+        raises (the UNet-family slice)."""
+        pipe = self.sample_pipeline()
+        steps = sample_steps or self.config.sample.sample_steps
+        names = [n for n, _ in pipe.nnet.named_parameters()]
+        params = [p for _, p in pipe.nnet.named_parameters()]
+
+        def nchw(t):  # channel-last draws -> f32 NCHW on the device
+            return None if t is None else self._on_device(t).float().permute(0, 3, 1, 2)
+
+        @torch.no_grad()
+        def sample_fn(cond, z, m0=None, panoptic=None, generator=None):
+            for p, name in zip(params, names):
+                p.copy_(self.state.ema[name])
+            cond = self._on_device(cond)
+            if cond is not None and cond.is_floating_point():
+                cond = cond.float()
+            x, mask = pipe.sample(nchw(z).contiguous(), nchw(m0), cond, steps,
+                                  generator=generator, panoptic=self._on_device(panoptic),
+                                  decode=decode)
+            x = x.float().permute(0, 2, 3, 1)
+            return x if mask is None else (x, mask.permute(0, 2, 3, 1))
+
+        return sample_fn
+
+    def _on_device(self, t):
+        """None, a numpy array or a tensor -> None or a tensor on the device."""
+        if t is None or torch.is_tensor(t):
+            return None if t is None else t.to(self.device)
+        return torch.from_numpy(np.array(t)).to(self.device)
+
     # --- data and loop ------------------------------------------------------
 
     def data_stream(self, start_step: int = 0):
@@ -332,16 +423,29 @@ class Trainer:
     def resume(self) -> bool:
         return ckpt_lib.resume(self.ckpt_root, self.state)
 
-    def fit(self, max_steps: Optional[int] = None):
+    def fit(self, max_steps: Optional[int] = None, eval_callback: Optional[Callable] = None,
+            vis_callback: Optional[Callable] = None):
         """Train to `config.train.n_steps` (or `max_steps`) from the latest
-        checkpoint; returns the logged metrics.  Evaluation and sample-grid
-        callbacks come with the evaluation slice."""
+        checkpoint; returns the logged metrics.
+
+        On the main process, vis_callback(trainer, step) runs every
+        `train.eval_interval` steps (sample grids) and eval_callback(trainer,
+        step) every `train.save_interval` steps (FID), where it takes over the
+        checkpoint (best-FID retention), as in JAX `fit` (l.783-845); both live
+        in `evaluation/runner.py`.  A sequence-parallel trainer cannot sample
+        yet (`sample_pipeline`), so under `mesh.sp > 1` neither callback runs
+        and every `save_interval` step is checkpointed."""
         config = self.config
+        if self.sp is not None and (eval_callback or vis_callback):
+            log.warning("mesh.sp > 1: no FID or sample grids while training (sampling "
+                        "under sp is not ported); checkpoints are kept at every save_interval")
+            eval_callback = vis_callback = None
         self.resume()
         stream = self.data_stream(start_step=self.state.step)
         n_steps = max_steps or config.train.n_steps
         log_interval = config.train.get("log_interval", 10)
         save_interval = config.train.get("save_interval", 50000)
+        eval_interval = config.train.get("eval_interval", 0)
         max_inflight = int(config.train.get("max_inflight_steps", 8))
         inflight: deque = deque()
         history = []
@@ -362,6 +466,13 @@ class Trainer:
                 log.info(json.dumps(m))
                 with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
                     f.write(json.dumps(m) + "\n")
-            if save_interval and step % save_interval == 0 and self.is_main:
-                ckpt_lib.save_checkpoint(self.ckpt_root, self.state)
+            if not self.is_main:
+                continue
+            if vis_callback is not None and eval_interval and step % eval_interval == 0:
+                vis_callback(self, step)
+            if save_interval and step % save_interval == 0:
+                if eval_callback is not None:
+                    eval_callback(self, step)
+                else:
+                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state)
         return history

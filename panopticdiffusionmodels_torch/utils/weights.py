@@ -233,3 +233,33 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def to_tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+_SAFETENSORS_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+                       "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+                       "BOOL": torch.bool}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file -> CPU tensors: an 8-byte little-endian header
+    length, a JSON header of {name: {dtype, shape, data_offsets}}, then the
+    raw little-endian tensor bytes (offsets count from the end of the header)."""
+    import json
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = meta["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[meta["dtype"]]
+        flat = (torch.frombuffer(data, dtype=dtype, offset=begin,
+                                 count=(end - begin) // dtype.itemsize)
+                if end > begin else torch.empty(0, dtype=dtype))
+        out[name] = flat.reshape(meta["shape"]).clone()
+    return out

@@ -10,6 +10,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ml_collections", "absl", "panopticdiffusi
 PIXEL_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "diffusion.sde", "samplers.euler_maruyama", "configs.cifar10_uvit_small",
     "configs.imagenet64_uvit_mid")]
+# the modules of the evaluation and CLIP slice, which the walk must reach
+EVAL_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "evaluation.inception", "evaluation.fid", "evaluation.kid", "evaluation.mask_metrics",
+    "evaluation.sampler_io", "evaluation.runner", "evaluation.clip_score", "models.clip",
+    "utils.misc")]
+# packages the port must not come to need: CLIP's tokenizer and weights are read
+# by its own code
+NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
 
 PROBE = f"""
 import importlib, pkgutil, sys
@@ -21,6 +29,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print("FORBIDDEN:", bad)
 print("MODULES:", sum(m.startswith(pkg.__name__) for m in sys.modules))
 print("PIXEL:", all(m in sys.modules for m in {PIXEL_MODULES!r}))
+print("EVAL:", all(m in sys.modules for m in {EVAL_MODULES!r}))
+print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
 
@@ -32,6 +42,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "FORBIDDEN: []" in out.stdout, out.stdout
     assert int(out.stdout.split("MODULES:")[1].split()[0]) >= 15
     assert "PIXEL: True" in out.stdout, out.stdout
+    assert "EVAL: True" in out.stdout, out.stdout
+    assert "LOADED: []" in out.stdout, out.stdout
 
 
 def test_port_sources_name_no_jax_import():

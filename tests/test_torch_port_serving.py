@@ -91,7 +91,7 @@ def test_generate_and_batches_on_cpu():
     np.testing.assert_array_equal(images, again)
     outs = list(pipe.generate_batches([{"contexts": c} for c in ctxs], steps=3, seed=1))
     assert len(outs) == 2 and not np.array_equal(outs[0][0], images)
-    with pytest.raises(NotImplementedError, match="CLIP"):
+    with pytest.raises(ValueError, match="clip_path"):
         pipe.generate(prompts=["a bus"], steps=3)
 
 
