@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (panoptic and ImageNet-256
 class-conditional, exact and with the sampling speed modes; pixel-space
-ImageNet-64 class-conditional and CIFAR-10 unconditional), its bench,
-training (panoptic, U-ViT-L/2 latent_discrete and CIFAR-10 pixel_sde),
-sequence-parallel training, (B, H, L, D) attention and fused-LayerNorm A/B
-paths, evaluation (sampling, FID, the CLIP encoders) on one NVIDIA H100 and
-check their kernels.
+ImageNet-64 class-conditional and CIFAR-10 unconditional; the UNet family
+with PNDM; the rest of the config zoo, U-ViT-H among it), its bench,
+training (panoptic U-ViT and UNet, U-ViT-L/2 latent_discrete and CIFAR-10
+pixel_sde), sequence-parallel training, (B, H, L, D) attention and
+fused-LayerNorm A/B paths, evaluation (sampling, FID, the CLIP encoders) on
+one NVIDIA H100 and check their kernels.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -19,7 +20,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
      and training shapes, the pixel-space ones among them (U-ViT-M/4 at
      (64, 258, 12, 64), U-ViT-S/2 at (32, 257, 8, 64) and, with lse, at
-     (128, 257, 8, 64)) (relative deviation < 5e-3, and where L is not a
+     (128, 257, 8, 64)) and U-ViT-H/2 serving at (64, 258, 16, 72)
+     (relative deviation < 5e-3, and where L is not a
      whole number of 64-row tiles the tail rows on their own: < 5e-3, lse
      < 1e-4), each shape with the loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
      timed in turns with `scaled_dot_product_attention`, its yardstick
@@ -30,8 +32,9 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      needs a gradient raises;
      3b. the backward kernel vs `attention_qkv_vjp_plain` and vs
      `attention_qkv_vjp_lse_plain` (its own decomposition) at the training
-     shapes (panoptic, U-ViT-L/2 at batch 64 and U-ViT-S/2 at (128, 257, 8,
-     64)), U-ViT-L/2 / U-ViT-H and two ragged short L (relative deviation
+     shapes (panoptic, U-ViT-L/2 at batch 64, U-ViT-S/2 at (128, 257, 8,
+     64) and U-ViT-H/2 at (32, 258, 16, 72)), U-ViT-L/2 / U-ViT-H and two
+     ragged short L (relative deviation
      of dqkv < 5e-3 against each, the tail rows past the last whole tile
      < 5e-3 on their own), each shape with the loop it took (wgmma +
      TMA for head dim 64, mma.sync for the others); two calls bit-identical
@@ -179,7 +182,36 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      contexts= request and phase 5's;
  23. CLIP score: a seeded CLIP-ViT-B/32 scores phase 20's 64 images against
      64 caption files, card against CPU (< 1e-3 relative);
- 24. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 25. the UNet: mscoco_unet's UNet2DCondition at full width (860.6 M
+     parameters, seeded, mask gate opened) on the card in f32 with TF32 off
+     against the CPU in f32 at B = 2 (< 1e-3 relative on noise and mask);
+     bf16 against f32 on the card at B = 8 (printed); the operations of one
+     bf16 forward at B = 8 (`FlopCounterMode`);
+ 26. UNet serving: GenerationPipeline.from_config("mscoco_unet") (bf16
+     network, f32 VAE, PNDM, CFG 1.0): 1 warm-up and 3 requests of 4 CLIP
+     contexts at 50 steps, exactly 51 network calls of batch 8 a request and
+     no launch of the five kernels (the UNet's attention is the plain one,
+     as in JAX); latency, images/s, peak memory beside the operations bound
+     of 51 forwards; one request under torch.profiler;
+ 27. UNet training: `Trainer` for mscoco_unet at full width from the seeded
+     initialisation on synthetic SD-feature coco data: 3 warm-up and 20
+     timed steps at batch 8, no kernel launch, finite losses; AdamW + EMA's
+     device time (CUDA events) beside its bytes bound; a profiled step;
+ 28. mscoco_unet_512: one request of 1 context at 30 steps (31 calls of
+     batch 2, L = 4096 at the first level), then 3 warm-up and 5 timed
+     steps at batch 1: latency, step time, peak memory;
+ 29. the rest of the zoo on kernel 1: a 6-step request of each of
+     mscoco_stable_diffusion, mscoco_uvit_mid, mscoco_uvit_large (4
+     contexts), imagenet256_uvit_huge (32 labels), imagenet512_uvit_large
+     and imagenet512_uvit_huge (8 labels) through the kernel against the
+     plain attention (images < 2e-2, masks < 5e-2), exactly blocks x 6
+     kernel-1 launches (26, 17, 42, 29, 21, 29 blocks);
+ 30. U-ViT-H/2: 1 warm-up and 3 requests of 32 labels at 50 steps, CFG 0.4,
+     exactly 1450 kernel-1 launches a request at (64, 258, 16, 72) on the
+     mma.sync loop; one latent_discrete step at batch 32 through kernels 1
+     and 2 against the plain attention (loss < 5e-3, whole gradient < 2e-2)
+     with exactly 29 forward and 29 backward kernel calls;
+ 31. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -225,22 +257,27 @@ PEAK_BYTES = 3.35e12
 # The pixel-space slice: U-ViT-M/4 ImageNet-64 serving (64 labels, 12 heads,
 # L = 2 + 256), U-ViT-S/2 CIFAR-10 serving (32 images, L = 1 + 256, one row
 # past 4 x 64) and its training at batch 128 (with lse).
+# The UNet-family slice: U-ViT-H/2 serving at ImageNet-256 (CFG 2x32, 16
+# heads of 72) on the mma.sync loop.
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
                  (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
-                 (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64)]
+                 (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
-PIXEL_SHAPES = KERNEL_SHAPES[7:]
+PIXEL_SHAPES = KERNEL_SHAPES[7:10]
+HUGE_SHAPE = KERNEL_SHAPES[10]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
-              (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64)]
+              (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64),
+              (32, 258, 16, 72)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
 # row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
 # training at batch 128 (phase 3's last row with lse, and the backward).
 LATENT_TRAIN_SHAPE = BWD_SHAPES[6]
 CIFAR_TRAIN_SHAPE = BWD_SHAPES[7]
+HUGE_TRAIN_SHAPE = BWD_SHAPES[8]  # U-ViT-H/2's latent_discrete step at batch 32
 TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
@@ -338,6 +375,26 @@ def get_config():
     config.num_workers = 4
     return config
 '''
+
+
+# The UNet family (PNDM, plain attention, no hand-written kernel): mscoco_unet
+# requests of 4 CLIP contexts at 50 steps, 51 network calls of the 2x4 CFG batch;
+# training at the config's batch of 8; mscoco_unet_512 one request of 1 context at
+# the config's 30 steps (31 calls) and 3 + 5 steps at its batch of 1.
+UNET_CONTEXTS, UNET_STEPS, UNET_CALLS = 4, 50, 51
+UNET_512_STEPS, UNET_512_CALLS, UNET_512_TIMED = 30, 31, 5
+# H100 SXM HBM bandwidth per AdamW + EMA parameter: p, g, m, v, ema read and p,
+# m, v, ema written, f32.
+OPT_BYTES_PER_PARAM = 36
+# The rest of the zoo: a 6-step request through kernel 1 against the plain
+# attention (config, requests' batch, kernel-1 launches an NFE).
+ZOO_STEPS = 6
+ZOO = [("mscoco_stable_diffusion", 4, 26), ("mscoco_uvit_mid", 4, 17),
+       ("mscoco_uvit_large", 4, 42), ("imagenet256_uvit_huge", 32, 29),
+       ("imagenet512_uvit_large", 8, 21), ("imagenet512_uvit_huge", 8, 29)]
+# U-ViT-H/2 (imagenet256_uvit_huge): requests of 32 labels, 29 blocks x 50 NFE
+# kernel-1 launches at HUGE_SHAPE; one latent_discrete step at batch 32.
+HUGE_BLOCKS, HUGE_LABELS, HUGE_BATCH = 29, 32, 32
 
 
 def zero_counts() -> None:
@@ -987,10 +1044,13 @@ def device_profile(fn, tag: str, what: str, unprofiled_s: float):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels only: operator rows carry the device time of the kernels they launch
+    # kernels only: operator rows carry the device time of the kernels they
+    # launch, and a user annotation's device row (AdamW's `Optimizer.step#...`)
+    # spans kernels that have rows of their own
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -1344,36 +1404,36 @@ def phase_train_parity(trainer, batch_size, impls, tag):
     assert torch.isfinite(ker_grad).all() and grad_rel < 2e-2, grad_rel
 
 
-def phase_train(trainer, tag, per_step):
+def phase_train(trainer, tag, per_step, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
     """Trainer.fit: warm-up, then the timed steps with every launch counter
     zeroed just before and read just after; `per_step` is the launches each
     kernel must make a step (the others must make none)."""
     bsz = trainer.config.train.batch_size
     frozen = {n: trainer.state.params[n].detach().clone() for n in sorted(trainer.state.frozen)}
     assert frozen or not trainer.config.pretrained, "fine-tune mode froze nothing"
-    trainer.fit(max_steps=WARMUP_STEPS)
+    trainer.fit(max_steps=warmup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    history = trainer.fit(max_steps=WARMUP_STEPS + TIMED_STEPS)
+    history = trainer.fit(max_steps=warmup + timed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    assert trainer.state.step == WARMUP_STEPS + TIMED_STEPS, trainer.state.step
-    assert counts == {k: per_step.get(k, 0) * TIMED_STEPS for k in counts}, counts
+    assert trainer.state.step == warmup + timed, trainer.state.step
+    assert counts == {k: per_step.get(k, 0) * timed for k in counts}, counts
     losses = [train_loss(m) for m in history]
     assert losses and np.isfinite(losses).all(), losses
     assert all(torch.isfinite(p).all() for p in trainer.state.params.values())
     assert all(torch.equal(trainer.state.params[n], p) for n, p in frozen.items())
-    result = dict(batch=bsz, steps=TIMED_STEPS, wall_s=wall, steps_per_s=TIMED_STEPS / wall,
-                  images_per_s=TIMED_STEPS * bsz / wall, step_ms=wall / TIMED_STEPS * 1e3,
+    result = dict(batch=bsz, steps=timed, wall_s=wall, steps_per_s=timed / wall,
+                  images_per_s=timed * bsz / wall, step_ms=wall / timed * 1e3,
                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                   launches=counts, logged_losses=losses,
                   frozen_params=len(trainer.state.frozen),
                   params=sum(p.numel() for p in trainer.state.params.values()))
     print(f"[{tag}] training: {json.dumps(result)}")
-    return counts, wall / TIMED_STEPS
+    return counts, wall / timed
 
 
 def phase_train_profile(trainer, step_s, tag):
@@ -1717,6 +1777,331 @@ def phase_clip_score(tmp: str, sample_dir: str):
     return dict(score=card, cpu_score=cpu, rel=rel, card_s=card_s)
 
 
+def open_mask_gate(model: torch.nn.Module, seed: int) -> None:
+    """Seeded non-zero values in the UNet's zero-initialised mask gate, so the
+    mask encoder reaches the image path."""
+    g = torch.Generator().manual_seed(seed)
+    gate = model.mask_zero_gate
+    with torch.no_grad():
+        gate.weight.copy_(torch.randn(gate.weight.shape, generator=g) * 0.02)
+        gate.bias.copy_(torch.randn(gate.bias.shape, generator=g) * 0.02)
+
+
+class call_counter:
+    """Counts the forward calls of `module` and the batch size of each."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.batches = []
+        self.handle = module.register_forward_hook(
+            lambda mod, args, out: self.batches.append(args[0].shape[0]))
+
+    def close(self) -> None:
+        self.handle.remove()
+
+
+def unet_inputs(b: int, sample: int, mask: int, gen, device):
+    x = torch.randn((b, 4, sample, sample), generator=gen, device=device)
+    t = torch.rand((b,), generator=gen, device=device) * 1000
+    ctx = torch.randn((b, 77, 768), generator=gen, device=device)
+    m = torch.randn((b, 8, mask, mask), generator=gen, device=device)
+    return x, t, ctx, m
+
+
+def phase_unet_forward():
+    """mscoco_unet's UNet2DCondition at full width (860.6 M parameters) with
+    seeded weights and an open mask gate: the card in f32 with TF32 off
+    against the CPU in f32 at B = 2 (relative deviation < 1e-3 on noise and
+    mask); the bf16 network against f32 on the card at B = 8 (printed); the
+    GEMM / conv / attention operations of one bf16 forward at B = 8 (the
+    serving batch) by `FlopCounterMode`, for phase 26's bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    kw = dict(get_config("mscoco_unet").nnet)
+    torch.manual_seed(4)
+    model = get_nnet(kw.pop("name"), **kw).eval()
+    open_mask_gate(model, 5)
+    n_params = sum(p.numel() for p in model.parameters())
+    card = card_line()
+    x, t, ctx, m = unet_inputs(2, 32, 64, torch.Generator().manual_seed(11), "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = model(x, t, ctx, mask_token=m)
+    cpu_s = time.perf_counter() - t0
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.to("cuda")
+        with torch.no_grad():
+            out = model(x.cuda(), t.cuda(), ctx.cuda(), mask_token=m.cuda())
+            torch.cuda.synchronize()
+            for name, a, b in zip(("noise", "mask"), out, ref):
+                rel = rel_dev(a.cpu(), b)
+                print(f"[25] UNet2DCondition ({n_params} parameters) forward B=2, {name}: card "
+                      f"f32 (TF32 off) vs CPU f32 rel {rel:.2e} (bar 1e-3); CPU {cpu_s:.2f} s "
+                      f"({card})")
+                assert torch.isfinite(a).all() and rel < 1e-3, (name, rel)
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            x8, t8, ctx8, m8 = unet_inputs(2 * UNET_CONTEXTS, 32, 64, gen, "cuda")
+            f32 = model(x8, t8, ctx8, mask_token=m8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    model.to(torch.bfloat16)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        bf16 = model(x8, t8, ctx8, mask_token=m8)
+    flops = counter.get_total_flops()
+    for name, a, b in zip(("noise", "mask"), bf16, f32):
+        print(f"[25] UNet forward B={2 * UNET_CONTEXTS}, {name}: bf16 vs f32 on the card rel "
+              f"{rel_dev(a, b):.2e} ({card})")
+        assert torch.isfinite(a).all()
+    print(f"[25] one bf16 forward at B={2 * UNET_CONTEXTS}: {flops / 1e12:.3f} TFLOP of GEMMs, "
+          f"convolutions and attention (FlopCounterMode), {flops / 8 / 1e9:.1f} GFLOP an image")
+    return flops, n_params
+
+
+def phase_unet_serving(flops_b8: float):
+    """GenerationPipeline.from_config("mscoco_unet"): seeded weights, bf16
+    network, f32 VAE, PNDM with CFG 1.0 as one 2x batch.  1 warm-up, then 3
+    requests of 4 CLIP contexts at 50 steps with every launch counter zeroed
+    just before and read just after: exactly 51 network calls of batch 8 a
+    request and no launch of the five kernels (the UNet's attention is the
+    plain one, as in JAX); latency, images/s and peak memory beside the
+    operations bound of 51 forwards; one request under the profiler."""
+    t0 = time.perf_counter()
+    pipe = GenerationPipeline.from_config("mscoco_unet", seed=0)
+    build_s = time.perf_counter() - t0
+    assert pipe.pndm and pipe.panoptic and pipe.dtype == torch.bfloat16
+    assert next(pipe.vae.parameters()).dtype == torch.float32
+    rng = np.random.default_rng(3)
+    contexts = [rng.standard_normal((UNET_CONTEXTS, 77, 768)).astype(np.float32)
+                for _ in range(REQUESTS + 1)]
+    t0 = time.perf_counter()
+    pipe.generate(contexts=contexts[0], steps=UNET_STEPS, seed=99)  # warm-up
+    warmup_s = time.perf_counter() - t0
+    calls = call_counter(pipe.nnet)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    latencies = []
+    for i in range(REQUESTS):
+        n0 = len(calls.batches)
+        t0 = time.perf_counter()
+        images, ids = pipe.generate(contexts=contexts[i + 1], steps=UNET_STEPS, seed=i)
+        latencies.append(time.perf_counter() - t0)
+        assert calls.batches[n0:] == [2 * UNET_CONTEXTS] * UNET_CALLS, calls.batches[n0:]
+        assert pipe.last_real_evals == UNET_CALLS, pipe.last_real_evals
+        assert images.shape == (UNET_CONTEXTS, 256, 256, 3), images.shape
+        assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+        assert ids.shape == (UNET_CONTEXTS, 64, 64, 1) and ids.min() >= 0 and ids.max() < 256
+    counts = read_counts()
+    calls.close()
+    assert not any(counts.values()), counts
+    bound_ms = bound(0, flops_b8 * UNET_CALLS)[0]
+    result = dict(requests=REQUESTS, contexts_per_request=UNET_CONTEXTS, steps=UNET_STEPS,
+                  network_calls_per_request=UNET_CALLS, launches=counts, latency_s=latencies,
+                  mean_latency_s=float(np.mean(latencies)),
+                  images_per_s=REQUESTS * UNET_CONTEXTS / sum(latencies),
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  network_bound_ms=bound_ms, network_tflop=flops_b8 * UNET_CALLS / 1e12,
+                  from_config_s=build_s, warmup_request_s=warmup_s, card=card_line())
+    print(f"[26] mscoco_unet serving (PNDM): {json.dumps(result)}")
+    busy = device_profile(lambda: pipe.generate(contexts=contexts[0], steps=UNET_STEPS, seed=9),
+                          "26", f"mscoco_unet request ({UNET_CONTEXTS} contexts)",
+                          min(latencies))
+    print(f"[26] device busy {busy:.1f} ms against the network's operations bound "
+          f"{bound_ms:.1f} ms ({bound_ms / busy:.1%} of the busy time)")
+    return result
+
+
+def make_unet_trainer(tmp, name, n):
+    """`Trainer` for a UNet config at full width from the seeded
+    initialisation (an LDM checkpoint of this model is 3.4 GB in f32; its
+    load is held on the CPU) on `n` synthetic SD-feature coco samples."""
+    config = get_config(name)
+    h, w, c = config.z_shape
+    config.dataset = d(name="synthetic", n=n, z_shape=(h, w, 2 * c),
+                       clip_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
+                       mask_size=config.nnet.mask_size)
+    config.train.log_interval = 5
+    config.num_workers = 4
+    trainer = Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
+    assert trainer.is_unet and not trainer.state.frozen and not config.pretrained
+    return trainer
+
+
+def phase_unet_train(tmp):
+    """mscoco_unet training at the config's batch of 8 (bf16 autocast over f32
+    master weights, AdamW + EMA): 3 warm-up and 20 timed steps with no kernel
+    launch, finite losses; the device time of AdamW + EMA alone (CUDA events
+    around `apply_gradients`) beside its bytes bound; one step under the
+    profiler."""
+    trainer = make_unet_trainer(tmp, "mscoco_unet", 64)
+    counts, step_s = phase_train(trainer, "27", {})
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    batch = next(trainer.data_stream(start_step=trainer.state.step))
+    opt_ms = []
+    for _ in range(3):
+        trainer.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.state.apply_gradients(ema_rate=trainer.config.get("ema_rate", 0.9999))
+        end.record()
+        torch.cuda.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+    opt_bound = bound(OPT_BYTES_PER_PARAM * n_params, 0)[0]
+    print(f"[27] AdamW + EMA over {n_params} f32 parameters: {float(np.median(opt_ms)):.2f} ms "
+          f"of device time (median of {opt_ms}), {float(np.median(opt_ms)) / (step_s * 1e3):.1%} "
+          f"of the {step_s * 1e3:.1f} ms step; bytes bound {opt_bound:.2f} ms ({card_line()})")
+    busy = device_profile(lambda: trainer.train_step(batch), "27",
+                          f"mscoco_unet train step (batch {trainer.config.train.batch_size})",
+                          step_s)
+    print(f"[27] AdamW + EMA {float(np.median(opt_ms)) / busy:.1%} of the profiled step's "
+          f"device time {busy:.1f} ms")
+    return dict(step_ms=step_s * 1e3, opt_ms=float(np.median(opt_ms)), opt_bound_ms=opt_bound)
+
+
+def phase_unet_512(tmp):
+    """mscoco_unet_512 (64^2 latents, L = 4096 at the first level, plain
+    attention): one request of 1 context at the config's 30 steps (31 calls of
+    the 2x1 batch, no kernel launch), then 3 warm-up and 5 timed steps at the
+    config's batch of 1: latency, step time, peak memory."""
+    pipe = GenerationPipeline.from_config("mscoco_unet_512", seed=0)
+    assert pipe.config.sample.sample_steps == UNET_512_STEPS
+    context = np.random.default_rng(4).standard_normal((1, 77, 768)).astype(np.float32)
+    pipe.generate(contexts=context, steps=2, seed=98)  # warm-up
+    calls = call_counter(pipe.nnet)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    images, ids = pipe.generate(contexts=context, steps=UNET_512_STEPS, seed=0)
+    latency = time.perf_counter() - t0
+    counts = read_counts()
+    calls.close()
+    assert calls.batches == [2] * UNET_512_CALLS, calls.batches
+    assert not any(counts.values()), counts
+    assert images.shape == (1, 512, 512, 3) and np.isfinite(images).all(), images.shape
+    assert ids.shape == (1, 128, 128, 1), ids.shape
+    print(f"[28] mscoco_unet_512 request of 1 context at {UNET_512_STEPS} steps "
+          f"({UNET_512_CALLS} calls): {latency:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, kernel launches {counts} "
+          f"({card_line()})")
+    del pipe
+    torch.cuda.empty_cache()
+    trainer = make_unet_trainer(tmp, "mscoco_unet_512", 16)
+    phase_train(trainer, "28", {}, timed=UNET_512_TIMED)
+    return latency
+
+
+def phase_zoo():
+    """The rest of the zoo on kernel 1: for each config a 6-step request of
+    its batch through the kernel against the same request through the plain
+    attention on the same draws (images < 2e-2, masks < 5e-2), with every
+    launch counter zeroed just before and read just after each: exactly
+    blocks x 6 kernel-1 launches through the kernel, none through the plain
+    attention.  Returns the imagenet256_uvit_huge pipeline for phase 30."""
+    huge = None
+    launches = {}
+    for name, n, blocks in ZOO:
+        pipe = GenerationPipeline.from_config(name, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        if pipe.is_t2i:
+            cond = torch.randn((n, 77, 768), generator=gen, device="cuda")
+        else:
+            cond = torch.randint(0, 1000, (n,), generator=gen, device="cuda")
+        z, m0 = pipe._draw(n, gen)
+        outs, counts = {}, {}
+        for impl in ("kernel", "plain"):
+            set_attn_impl(pipe.nnet, impl)
+            torch.cuda.synchronize()
+            zero_counts()
+            outs[impl] = pipe.sample(z, m0, cond, steps=ZOO_STEPS)
+            torch.cuda.synchronize()
+            counts[impl] = read_counts()
+        set_attn_impl(pipe.nnet, "infer")
+        want = {"fused_attention_qkv": blocks * ZOO_STEPS}
+        assert counts["kernel"] == {k: want.get(k, 0) for k in counts["kernel"]}, counts
+        assert not any(counts["plain"].values()), counts
+        hw = 8 * pipe.z_shape[0]
+        assert outs["kernel"][0].shape == (n, 3, hw, hw), outs["kernel"][0].shape
+        rels = []
+        for i, (what, bar) in enumerate((("images", 2e-2), ("mask", 5e-2))):
+            if outs["kernel"][i] is None:
+                continue
+            rel = rel_dev(outs["kernel"][i], outs["plain"][i])
+            rels.append(f"{what} {rel:.2e} (bar {bar:.0e})")
+            assert torch.isfinite(outs["kernel"][i]).all() and rel < bar, (name, what, rel)
+        launches[name] = counts["kernel"]["fused_attention_qkv"]
+        print(f"[29] {name}: {ZOO_STEPS}-step request of {n} at {hw}x{hw}, kernel vs plain "
+              f"{', '.join(rels)}; {launches[name]} kernel-1 launches ({blocks} x {ZOO_STEPS}) "
+              f"({card_line()})")
+        if name == "imagenet256_uvit_huge":
+            huge = pipe
+        del pipe
+        torch.cuda.empty_cache()
+    return huge, launches
+
+
+def phase_uvit_huge(pipe, tmp):
+    """U-ViT-H/2 (imagenet256_uvit_huge, 16 heads of 72): 1 warm-up and 3
+    requests of 32 labels at 50 steps, CFG 0.4, with every launch counter
+    zeroed just before and read just after: exactly 1450 kernel-1 launches a
+    request, each at (64, 258, 16, 72); then one latent_discrete step at batch
+    32 through kernels 1 and 2 against the plain attention (loss < 5e-3,
+    whole gradient < 2e-2) with exactly 29 forward and 29 backward kernel
+    calls."""
+    assert pipe.class_cond and float(pipe.config.sample.scale) == 0.4
+    labels = np.random.default_rng(5).integers(0, 1000, size=(REQUESTS + 1, HUGE_LABELS))
+    seen = set()
+    attns = [m for m in pipe.nnet.modules() if isinstance(m, Attention)]
+    for m in attns:
+        m.attend = (lambda f: lambda qkv: seen.add(tuple(qkv.shape[:2])) or f(qkv))(m.attend)
+    pipe.generate(labels=labels[0], steps=STEPS, seed=99)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    latencies = []
+    per_request = HUGE_BLOCKS * STEPS
+    for i in range(REQUESTS):
+        t0 = time.perf_counter()
+        images = pipe.generate(labels=labels[i + 1], steps=STEPS, seed=i)
+        latencies.append(time.perf_counter() - t0)
+        assert fqa.launches == (i + 1) * per_request, (i, fqa.launches)
+        assert images.shape == (HUGE_LABELS, 256, 256, 3), images.shape
+        assert np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1
+    counts = read_counts()
+    for m in attns:
+        del m.attend
+    want = {"fused_attention_qkv": REQUESTS * per_request}
+    assert counts == {k: want.get(k, 0) for k in counts}, counts
+    b, l, h, dh = HUGE_SHAPE
+    assert seen == {(b, l)} and attns[0].num_heads == h, (seen, attns[0].num_heads)
+    result = dict(requests=REQUESTS, labels_per_request=HUGE_LABELS, steps=STEPS, cfg_scale=0.4,
+                  launches=counts["fused_attention_qkv"], kernel_shape=list(HUGE_SHAPE),
+                  latency_s=latencies, mean_latency_s=float(np.mean(latencies)),
+                  images_per_s=REQUESTS * HUGE_LABELS / sum(latencies),
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  card=card_line())
+    print(f"[30] U-ViT-H/2 ImageNet-256 serving: {json.dumps(result)}")
+
+    config = get_config("imagenet256_uvit_huge")
+    h_, w_, c_ = config.z_shape
+    config.dataset = d(name="synthetic", style="imagenet", n=2 * HUGE_BATCH,
+                       z_shape=(h_, w_, 2 * c_), num_classes=1000)
+    config.train.batch_size = HUGE_BATCH
+    config.num_workers = 0
+    trainer = Trainer(config, os.path.join(tmp, "run_imagenet256_uvit_huge"), device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    phase_train_parity(trainer, HUGE_BATCH, ("auto", "plain"), "30")
+    torch.cuda.synchronize()
+    train_counts = read_counts()
+    want = {"fused_attention_qkv": HUGE_BLOCKS, "fused_attention_qkv_vjp": HUGE_BLOCKS}
+    assert train_counts == {k: want.get(k, 0) for k in train_counts}, train_counts
+    print(f"[30] U-ViT-H/2 latent_discrete step B={HUGE_BATCH}: {train_counts} ({card_line()})")
+    return counts["fused_attention_qkv"], train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -1792,6 +2177,21 @@ def main() -> int:
         prompt_launches, _ = phase_prompts(tmp, latency)
         torch.cuda.empty_cache()
         phase_clip_score(tmp, sample_dir)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_flops, _ = phase_unet_forward()
+        torch.cuda.empty_cache()
+        phase_unet_serving(unet_flops)
+        torch.cuda.empty_cache()
+        phase_unet_train(tmp)
+        torch.cuda.empty_cache()
+        phase_unet_512(tmp)
+        torch.cuda.empty_cache()
+        huge_pipe, zoo_launches = phase_zoo()
+        huge_launches, huge_train_counts = phase_uvit_huge(huge_pipe, tmp)
+        del huge_pipe
+        torch.cuda.empty_cache()
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -1821,7 +2221,12 @@ def main() -> int:
                               chain_counts["fused_attention_qkv"],
                           f"evaluation ({EVAL_SAMPLES} samples, mini-batches of {EVAL_BATCH})":
                               eval_result["launches"],
-                          f"prompts request ({len(PROMPTS)} prompts)": prompt_launches},
+                          f"prompts request ({len(PROMPTS)} prompts)": prompt_launches,
+                          **{f"{name} {ZOO_STEPS}-step request": n
+                             for name, n in zoo_launches.items()},
+                          "U-ViT-H/2 ImageNet-256 serving (3 requests)": huge_launches,
+                          "U-ViT-H/2 latent_discrete step (batch 32)":
+                              huge_train_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -1829,7 +2234,8 @@ def main() -> int:
         per="one launch at L=334 plus one at L=590 (B=8, H=8, D=64), the pair each "
             "dual-stream layer runs per NFE; the ImageNet-256 serving shape is the row "
             f"{list(IMAGENET_SHAPE)}, the pixel-space shapes the rows "
-            f"{[list(x) for x in PIXEL_SHAPES]}; the fused arm of the A/B chain launches "
+            f"{[list(x) for x in PIXEL_SHAPES]}, U-ViT-H/2 serving the row "
+            f"{list(HUGE_SHAPE)}; the fused arm of the A/B chain launches "
             "this kernel inside fused_ln_qkv_attention, which counts it there",
         shapes=rows)
     train_rows = [r for r in bwd_rows if tuple(r["shape"]) in TRAIN_SHAPES]
@@ -1844,7 +2250,9 @@ def main() -> int:
                           f"U-ViT-L/2 latent_discrete training ({TIMED_STEPS} steps)":
                               latent_counts["fused_attention_qkv_vjp"],
                           f"CIFAR-10 S/2 pixel_sde training ({TIMED_STEPS} steps)":
-                              pixel_counts["fused_attention_qkv_vjp"]},
+                              pixel_counts["fused_attention_qkv_vjp"],
+                          "U-ViT-H/2 latent_discrete step (batch 32)":
+                              huge_train_counts["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
@@ -1852,7 +2260,7 @@ def main() -> int:
         per="one call at L=334 plus one at L=590 (B=64, H=8, D=64), the pair each "
             "dual-stream layer runs per train step; one call is two CUDA kernels; the "
             f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}, the CIFAR-10 "
-            f"one {list(CIFAR_TRAIN_SHAPE)}",
+            f"one {list(CIFAR_TRAIN_SHAPE)}, the U-ViT-H/2 one {list(HUGE_TRAIN_SHAPE)}",
         shapes=bwd_rows)
     hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
     per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",

@@ -1,0 +1,20 @@
+"""ImageNet-256 U-ViT-H/2 latent-space config (reference configs/imagenet256_uvit_huge.py):
+1152 wide, 16 heads of 72."""
+from .base import adamw, autoencoder_block, base_config, d, sample_block, train_block, uvit, warmup
+
+
+def get_config():
+    config = base_config()
+    config.task = "latent_discrete"
+    config.z_shape = (32, 32, 4)
+    config.autoencoder = autoencoder_block("assets/stable-diffusion/autoencoder_kl_ema.pth")
+    config.train = train_block(500000, 1024, mode="cond")
+    config.optimizer = adamw(2e-4, 0.03, (0.99, 0.99))
+    config.lr_scheduler = warmup(5000)
+    config.nnet = uvit(img_size=32, patch_size=2, in_chans=4, embed_dim=1152, depth=28,
+                       num_heads=16, num_classes=1001, use_checkpoint=True, conv=False,
+                       scan_blocks=True)
+    config.dataset = d(name="imagenet256_features", path="assets/datasets/imagenet256_features",
+                       cfg=True, p_uncond=0.1)
+    config.sample = sample_block(50, 50000, 50, algorithm="dpm_solver", cfg=True, scale=0.4)
+    return config

@@ -1,3 +1,4 @@
+from .unet import UNet2DCondition
 from .uvit import UViT
 from .uvit_t2i import UViTT2I
 
@@ -16,5 +17,5 @@ def get_nnet(name: str, **kwargs):
     if name == "uvit":
         return UViT(**kwargs)
     if name == "unet_t2i":
-        raise NotImplementedError("models/unet.py comes with the UNet-family slice")
+        return UNet2DCondition(**kwargs)
     raise NotImplementedError(name)

@@ -2,8 +2,8 @@
 
 Port of `panopticdiffusionmodels_tpu/serving.py::GenerationPipeline`: the
 t2i / panoptic, class-conditional and unconditional DPM-Solver branches of
-the discrete schedule, and the continuous VP-SDE branch of the `pixel_sde` /
-`latent_sde` configs:
+the discrete schedule, its PNDM branch (the UNet family's sampler), and the
+continuous VP-SDE branch of the `pixel_sde` / `latent_sde` configs:
 
     from panopticdiffusionmodels_torch.serving import GenerationPipeline
     pipe = GenerationPipeline.from_config("mscoco_uvit_small",
@@ -21,12 +21,17 @@ the discrete schedule, and the continuous VP-SDE branch of the `pixel_sde` /
     pipe = GenerationPipeline.from_config("cifar10_uvit_small")
     images = pipe.generate(n=16)  # 1000-step Euler-Maruyama, the config's sampler
 
+    pipe = GenerationPipeline.from_config("mscoco_unet", nnet_path="sd-v1.ckpt")
+    images, masks = pipe.generate(contexts=clip_contexts)  # 50-step PNDM
+
 A discrete request runs 50-NFE order-3 DPM-Solver++ ('fast'), mask-aware for
 the panoptic model, with CFG as one 2x-batch forward per NFE (the empty
 context, or the null class num_classes - 1; an unconditional model has no
 CFG), then the KL-VAE decode and, for the panoptic model, the analog-bit ->
-panoptic-id decode.  A continuous request samples the `VPSDE` with the
-config's `sample.algorithm`: Euler-Maruyama on the reverse SDE or on the
+panoptic-id decode; `sample.algorithm='pndm'` (the UNet configs) runs
+SD-1.5's PLMS instead, steps + 1 evaluations on integer timesteps with the
+mask token fixed and CFG as one 2x batch.  A continuous request samples
+the `VPSDE` with the config's `sample.algorithm`: Euler-Maruyama on the reverse SDE or on the
 probability-flow ODE, or else the upstream DPM-Solver plan ('fast_upstream',
 noise prediction, the linear schedule, eps 1e-4, order 3, logSNR steps);
 labels go to a class-conditional model as `y`, and only a config with an
@@ -60,9 +65,10 @@ from .models.vae import get_model as get_vae
 from .samplers.dpm_solver import DPMSolver
 from .samplers.euler_maruyama import euler_maruyama
 from .samplers.noise_schedule import NoiseScheduleVP
+from .samplers.pndm import pndm_sample
 from .samplers.speed_budget import check_speed_modes
 from .utils.misc import one_deep
-from .utils.weights import load_torch_state_dict, reference_nnet_state_dict
+from .utils.weights import load_nnet_state_dict, load_torch_state_dict
 
 log = logging.getLogger(__name__)
 
@@ -83,33 +89,38 @@ class GenerationPipeline:
     def __init__(self, config, nnet: torch.nn.Module, vae: Optional[torch.nn.Module] = None,
                  empty_context=None, device="cuda", clip_path: Optional[str] = None):
         name = config.nnet.name
-        if name not in ("uvit", "uvit_t2i"):
-            raise NotImplementedError(f"serving {name!r} comes with a later slice of the port")
+        if name not in ("uvit", "uvit_t2i", "unet_t2i"):
+            raise NotImplementedError(f"serving nnet {name!r}")
         self.class_cond = name == "uvit" and config.nnet.get("num_classes", -1) > 0
-        self.is_t2i = name == "uvit_t2i"
+        self.is_t2i = name in ("uvit_t2i", "unet_t2i")
         task = config.get("task", "")
         algorithm = config.sample.get("algorithm", "dpm_solver")
         self.continuous = task in ("pixel_sde", "latent_sde")
         if self.continuous and self.is_t2i:
             raise NotImplementedError(f"serving task={task!r} samples a uvit; a t2i model "
                                       "serves t2i_discrete")
-        if not self.continuous and algorithm not in ("dpm_solver", ""):
+        if not self.continuous and algorithm not in ("dpm_solver", "", "pndm"):
             raise NotImplementedError(
                 f"serving task={task!r} / algorithm={algorithm!r}: the discrete schedule "
-                "serves dpm_solver; pndm comes with the UNet-family slice")
+                "serves dpm_solver and pndm")
+        if algorithm == "pndm" and not self.is_t2i:
+            raise NotImplementedError("pndm serving supports the t2i families")
+        self.pndm = not self.continuous and algorithm == "pndm"
         self.config = config
         self.device = torch.device(device)
         self.dtype = _DTYPES[config.get("compute_dtype", "bfloat16")]
         self.nnet = nnet.to(self.device, self.dtype).eval()
         self.vae = vae.to(self.device, torch.float32).eval() if vae is not None else None
-        hw = config.nnet.img_size
+        hw = config.nnet.get("img_size") or config.nnet.get("sample_size")
         self.z_shape = tuple(config.get("z_shape", (hw, hw, config.nnet.get("in_chans", 4))))
         if self.continuous:
             self.sde = VPSDE()
             self.ns = NoiseScheduleVP("linear")
         else:
             betas = stable_diffusion_beta_schedule()
-            self.N = Schedule(betas).N
+            schedule = Schedule(betas)
+            self.N = schedule.N
+            self.alphas_cumprod = schedule.cum_alphas[1:]  # PNDM's diffusers-convention table
             self.ns = NoiseScheduleVP("discrete", betas=betas)
         self.panoptic = self.is_t2i and bool(config.nnet.get("enable_panoptic", True))
         self._checked_knobs = set()  # speed-mode knob sets already checked
@@ -137,7 +148,10 @@ class GenerationPipeline:
                     clip_path: Optional[str] = None) -> "GenerationPipeline":
         """Build the network (and the VAE when the config has one) from seeded
         random weights, then load reference-format `.pth` files strictly when
-        given.  `clip_path`, a local CLIP-L/14 text encoder directory
+        given (a `unet_t2i` reads an LDM / miniSD UNet checkpoint through
+        `utils/ldm_bridge.py`, strictly on its image stream, as JAX
+        `serving.py:136-143` converts one).  `clip_path`, a local CLIP-L/14
+        text encoder directory
         (`models/clip.py::FrozenCLIPEmbedder`), lets `generate` take prompts."""
         config = (get_config(config_or_name)
                   if isinstance(config_or_name, str) and config_or_name in CONFIG_NAMES
@@ -154,8 +168,7 @@ class GenerationPipeline:
                     f"{what}={path!r} does not exist — serving would otherwise "
                     "silently generate from random weights")
         if nnet_path:
-            nnet.load_state_dict(reference_nnet_state_dict(load_torch_state_dict(nnet_path)),
-                                 strict=True)
+            load_nnet_state_dict(nnet, load_torch_state_dict(nnet_path), config.nnet)
         if vae_path:
             vae.load_state_dict(load_torch_state_dict(vae_path), strict=True)
         empty_context = None
@@ -195,6 +208,9 @@ class GenerationPipeline:
         if knobs not in self._checked_knobs:
             # once per distinct set of knobs, as JAX once per compiled program
             check_speed_modes(self.config)
+            if self.pndm and (accel_tau or cfg_interval):
+                log.warning("serving: sample.accel / sample.cfg_interval are DPM-Solver speed "
+                            "modes and have no effect with algorithm='pndm' — ignoring them")
             self._checked_knobs.add(knobs)
         if self.continuous:
             z0 = self._sample_continuous(z, cond, steps, generator)
@@ -228,11 +244,23 @@ class GenerationPipeline:
 
             def model_fn(xx, tt, mask_token=None):
                 return self.nnet(xx, tt * self.N)
-        solver = DPMSolver(model_fn, self.ns, predict_x0=True, accel_tau=accel_tau,
-                           cfg_interval=cfg_interval, mask_guidance_hold=hold)
-        out = solver.sample(z, steps=steps, eps=1.0 / self.N, T=1.0, order=3,
-                            method="fast", mask_token=m0, update_mask=not use_gt)
-        self.last_real_evals = solver.real_evals
+        if self.pndm:
+            # SD-1.5 PNDM / PLMS on integer timesteps, the mask token fixed
+            # (JAX `serving.py:248-285`, `Trainer.build_sample_fn` l.574-604)
+            self.last_real_evals = 0
+
+            def pndm_fn(xx, tt, mask_token=None):
+                self.last_real_evals += 1
+                return cfg_fn(xx, tt, cond, mask_token=mask_token)
+
+            out = pndm_sample(pndm_fn, z, steps, self.alphas_cumprod,
+                              num_train_timesteps=self.N, mask_token=m0)
+        else:
+            solver = DPMSolver(model_fn, self.ns, predict_x0=True, accel_tau=accel_tau,
+                               cfg_interval=cfg_interval, mask_guidance_hold=hold)
+            out = solver.sample(z, steps=steps, eps=1.0 / self.N, T=1.0, order=3,
+                                method="fast", mask_token=m0, update_mask=not use_gt)
+            self.last_real_evals = solver.real_evals
         z0, pred_mask = out if m0 is not None else (out, None)
         if self.vae is not None and decode:
             z0 = self.vae.decode(z0)

@@ -2,7 +2,10 @@
 `pixel_sde` and `latent_sde`.
 
 Port of `panopticdiffusionmodels_tpu/train/trainer.py::Trainer` for the
-panoptic text-to-image task (reference `train_t2i_discrete.py`), the
+panoptic text-to-image task (reference `train_t2i_discrete.py`, with the
+U-ViT or, `nnet.name='unet_t2i'`, the SD-1.x UNet of `models/unet.py`,
+whose `config.pretrained` is an LDM checkpoint read by `utils/ldm_bridge.py`
+and whose attention is the plain one), the
 class-conditional latent task of U-ViT on ImageNet features (reference
 `train_ldm_discrete.py`) and the continuous-time VP-SDE tasks of U-ViT on
 images (`pixel_sde`, unconditional or class-conditional, reference
@@ -78,7 +81,7 @@ from ..models import get_nnet
 from ..models.vae import get_model as get_vae
 from ..models.vae import sample_from_moments
 from ..parallel.mesh import from_mesh
-from ..utils.weights import load_torch_state_dict, reference_nnet_state_dict
+from ..utils.weights import load_nnet_state_dict, load_torch_state_dict
 from . import checkpoint as ckpt_lib
 from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
 
@@ -96,9 +99,13 @@ def step_seed(seed: int, step: int) -> int:
 def _check_supported(config) -> None:
     task = config.get("task", "")
     if task == "t2i_discrete":
-        if config.nnet.name != "uvit_t2i":
-            raise NotImplementedError(f"training nnet {config.nnet.name!r} comes with a later "
-                                      "slice")
+        if config.nnet.name not in ("uvit_t2i", "unet_t2i"):
+            raise NotImplementedError(f"training nnet {config.nnet.name!r}: t2i_discrete "
+                                      "trains uvit_t2i and unet_t2i")
+        if config.nnet.name == "unet_t2i" and config.get("mesh", {}).get("sp", 1) > 1:
+            # JAX `Trainer.__init__` l.133-137: the UNet's conv / attention mix
+            # has no single token axis to shard
+            raise ValueError(f"mesh.sp>1 is not supported for nnet {config.nnet.name!r}")
         if not config.nnet.get("enable_panoptic", True):
             raise NotImplementedError("image-only t2i training (l_simple) comes with a later "
                                       "slice")
@@ -158,7 +165,9 @@ class Trainer:
 
         nnet_kwargs = dict(config.nnet)
         nnet_kwargs.pop("name")
-        nnet_kwargs["attn_impl"] = "auto"
+        self.is_unet = config.nnet.name == "unet_t2i"
+        if not self.is_unet:  # the UNet's attention is the plain one, as in JAX
+            nnet_kwargs["attn_impl"] = "auto"
         if self.sp is not None:
             nnet_kwargs.update(attn_impl="ring", sp=self.sp)
             if self.sp.mode == "in_process":
@@ -176,8 +185,10 @@ class Trainer:
                 # Proceeding would freeze a randomly initialised image stream
                 # and train the mask stream against it without an error.
                 raise FileNotFoundError(f"config.pretrained={pretrained!r} does not exist")
-            self.nnet.load_state_dict(
-                reference_nnet_state_dict(load_torch_state_dict(pretrained)), strict=True)
+            # a UNet reads an LDM / miniSD checkpoint into its image stream (JAX l.220-229)
+            load_nnet_state_dict(self.nnet, load_torch_state_dict(pretrained), config.nnet)
+            # JAX's freeze set matches U-ViT names only, so a UNet fine-tune
+            # freezes nothing there and here.
             if self.task == "t2i_discrete":  # a class-conditional fine-tune freezes nothing
                 frozen = panoptic_image_stream_frozen(
                     n for n, _ in self.nnet.named_parameters())
@@ -344,7 +355,8 @@ class Trainer:
             from ..serving import GenerationPipeline
 
             kwargs = dict(self.config.nnet)
-            kwargs.update(attn_impl="infer", use_checkpoint=False)
+            if not self.is_unet:
+                kwargs.update(attn_impl="infer", use_checkpoint=False)
             nnet = get_nnet(kwargs.pop("name"), **kwargs)
             empty = getattr(self.dataset, "empty_context", None)
             self._pipeline = GenerationPipeline(self.config, nnet, self.vae, empty,
@@ -369,8 +381,9 @@ class Trainer:
         panoptic model, as tensors on the trainer's device (not synchronised);
         `decode=False` returns the latents without the VAE.
         Branches: continuous pixel_sde / latent_sde, latent_discrete with
-        class CFG, t2i_discrete with the speed modes and the mask hold; pndm
-        raises (the UNet-family slice)."""
+        class CFG, t2i_discrete with the speed modes and the mask hold, or
+        with `sample.algorithm='pndm'` PNDM with the mask token fixed (the
+        ground-truth mode too, JAX l.574-604)."""
         pipe = self.sample_pipeline()
         steps = sample_steps or self.config.sample.sample_steps
         names = [n for n, _ in pipe.nnet.named_parameters()]

@@ -5,6 +5,9 @@ Both directions of the weight story end in the reference's state-dict names
 names.  Inputs are nested mappings of numpy arrays (a flax `params` tree after
 `jax.tree.map(np.asarray, ...)`); this module uses numpy only.
 
+The UNet's names are the JAX package's own (`models/unet.py`), since the
+reference's UNet module was never published.
+
 Layouts: flax Dense (in, out) -> Linear (out, in); flax Conv (H, W, I, O) ->
 Conv2d (O, I, H, W); the patch-embedding Dense (p*p*C, D), whose per-patch
 vector is ordered (p1, p2, C), -> Conv2d (D, C, p, p); the zero-conv Dense
@@ -16,6 +19,8 @@ from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
+
+from .ldm_bridge import load_ldm_unet
 
 
 def _tree_map(fn, tree):
@@ -168,6 +173,26 @@ def uvit_t2i_state_dict(params: Mapping, *, patch_size: int,
     return out
 
 
+def unet_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX `UNet2DCondition` params -> the port's state dict.  The port's
+    module names are JAX's, so every path maps as it is: Dense -> Linear,
+    Conv HWIO -> OIHW, norm `scale` -> `weight`."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        if "scale" in tree:
+            _norm(tree, prefix, out)
+        elif "kernel" in tree:
+            (_linear if np.ndim(tree["kernel"]) == 2 else _conv2d)(tree, prefix, out)
+        else:
+            for name, sub in tree.items():
+                walk(sub, f"{prefix}.{name}" if prefix else name)
+
+    walk(p, "")
+    return out
+
+
 def _resnet(t, prefix, out):
     _norm(t["norm1"], f"{prefix}.norm1", out)
     _conv2d(t["conv1"], f"{prefix}.conv1", out)
@@ -224,6 +249,17 @@ def reference_nnet_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
             continue
         out[k] = torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
     return out
+
+
+def load_nnet_state_dict(nnet: torch.nn.Module, sd: Mapping, nnet_config) -> None:
+    """A checkpoint into the network of a config's `nnet` fields, strictly: an
+    LDM / miniSD UNet checkpoint into a `unet_t2i`'s image stream
+    (`utils/ldm_bridge.py`), else a reference-format state dict."""
+    if nnet_config.name == "unet_t2i":
+        load_ldm_unet(nnet, sd, channel_mult=tuple(nnet_config.channel_mult),
+                      num_res_blocks=nnet_config.num_res_blocks)
+    else:
+        nnet.load_state_dict(reference_nnet_state_dict(sd), strict=True)
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -15,6 +15,11 @@ EVAL_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "evaluation.inception", "evaluation.fid", "evaluation.kid", "evaluation.mask_metrics",
     "evaluation.sampler_io", "evaluation.runner", "evaluation.clip_score", "models.clip",
     "utils.misc")]
+# the modules of the UNet-family slice and the rest of the zoo, which the walk must reach
+UNET_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "models.unet", "samplers.pndm", "utils.ldm_bridge", "configs.mscoco_unet",
+    "configs.mscoco_unet_512", "configs.imagenet256_uvit_huge",
+    "configs.imagenet512_uvit_huge")]
 # packages the port must not come to need: CLIP's tokenizer and weights are read
 # by its own code
 NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
@@ -30,6 +35,7 @@ print("FORBIDDEN:", bad)
 print("MODULES:", sum(m.startswith(pkg.__name__) for m in sys.modules))
 print("PIXEL:", all(m in sys.modules for m in {PIXEL_MODULES!r}))
 print("EVAL:", all(m in sys.modules for m in {EVAL_MODULES!r}))
+print("UNET:", all(m in sys.modules for m in {UNET_MODULES!r}))
 print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
@@ -43,6 +49,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(out.stdout.split("MODULES:")[1].split()[0]) >= 15
     assert "PIXEL: True" in out.stdout, out.stdout
     assert "EVAL: True" in out.stdout, out.stdout
+    assert "UNET: True" in out.stdout, out.stdout
     assert "LOADED: []" in out.stdout, out.stdout
 
 

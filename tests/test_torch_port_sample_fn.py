@@ -3,7 +3,8 @@ same EMA weights (the port trainer's EMA, perturbed so the zero convs are
 open, carried by the JAX package's `torch_bridge`) and on the draws the JAX
 sample_fn makes from its key: panoptic t2i (synthetic_tiny, CFG, 6 steps),
 the ground-truth-conditioned mode (`nnet.use_ground_truth` with the true
-maps), class-conditional latent_discrete (synthetic_tiny_cond) and the
+maps), PNDM on the same panoptic model (the UNet family's sampler, 5
+steps), class-conditional latent_discrete (synthetic_tiny_cond) and the
 continuous pixel_sde branch (synthetic_tiny_pixel with the probability-flow
 ODE: Euler-Maruyama's SDE draws its step noise inside, which the two
 packages draw differently).  The speed modes and the continuous DPM-Solver
@@ -178,7 +179,15 @@ def test_sampler_takes_the_ema_of_the_moment(tmp_path):
     assert pt.sample_weights()[0] is pt.state.ema and pt.sample_weights()[1] is None
 
 
-def test_pndm_raises_naming_the_unet_slice(tmp_path):
-    config = configure(get_config("synthetic_tiny"), {"sample.algorithm": "pndm"})
-    with pytest.raises(NotImplementedError, match="UNet"):
-        Trainer(config, str(tmp_path), device="cpu").build_sample_fn(3)
+def test_pndm_matches_jax(tmp_path):
+    """PNDM on the panoptic U-ViT (JAX samples any t2i model with it): the
+    mask token fixed, the last mask prediction returned."""
+    jt, params, pt = pair(tmp_path, "synthetic_tiny", {"sample.algorithm": "pndm"})
+    rng = np.random.default_rng(3)
+    context = rng.standard_normal((N, 7, 16)).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    k1, k2 = jax.random.split(key)
+    z = np.asarray(jax.random.normal(k1, (N, 8, 8, 4)))
+    m0 = np.asarray(jax.random.normal(k2, (N, 16, 16, 8)))
+    ref = jt.build_sample_fn(5)(params, None, key, context)
+    check(pt.build_sample_fn(5)(context, z, m0), ref)
