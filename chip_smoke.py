@@ -6,7 +6,9 @@ with PNDM; the rest of the config zoo, U-ViT-H among it), its bench,
 training (panoptic U-ViT and UNet, U-ViT-L/2 latent_discrete and CIFAR-10
 pixel_sde), sequence-parallel training, (B, H, L, D) attention and
 fused-LayerNorm A/B paths, evaluation (sampling, FID, the CLIP encoders) on
-one NVIDIA H100 and check their kernels.
+one NVIDIA H100 and check their kernels; then data-parallel training over
+processes, every remat policy, `pallas_recompute`, image-only t2i training,
+Adam, sequence-parallel U-ViT training and asynchronous checkpoints.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -211,14 +213,49 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      mma.sync loop; one latent_discrete step at batch 32 through kernels 1
      and 2 against the plain attention (loss < 5e-3, whole gradient < 2e-2)
      with exactly 29 forward and 29 backward kernel calls;
- 31. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 31. data parallelism on the one card: (a) mscoco_uvit_small at batch 64,
+     fine-tune mode, through DistributedDataParallel over NCCL at world 1 in
+     a child process, one step against the same trainer without the
+     wrapper on the same batch and draws (loss < 5e-3, whole gradient
+     < 2e-2) with 26 + 26 kernel calls, then 20 steps of each timed in
+     turns; (b) two processes on the one card over gloo (NCCL refuses two
+     ranks on one card), synthetic_tiny with one head of 64 at a global
+     batch of 16 through `fit` with a checkpoint every step: the ranks'
+     parameters bit-identical after 3 steps, their update against one
+     process at batch 16 < 2e-2, only rank 0 wrote, 10 + 10 kernel calls a
+     step in each rank; step times beside one process's;
+ 32. every remat policy (None, 'nothing', 'everything', 'dots',
+     'dots_no_batch', 'save_attn') and use_checkpoint=False on
+     mscoco_uvit_small at batch 64, fine-tune mode: one step each on the
+     same weights, batch and draws (gradient against use_checkpoint=False
+     < 2e-2), exactly 26 kernel-1 launches under 'save_attn' / 'everything'
+     and 52 under the others (the attention replayed), 26 kernel-2 calls
+     under each; step time and peak memory of each over 5 steps;
+ 33. attn_impl='pallas_recompute' on the same trainer: 26 kernel-1 launches
+     a step and no kernel-2 call, the gradient against 'auto' < 2e-2; the
+     two timed in turns;
+ 34. image-only t2i: mscoco_uvit_mid (U-ViT-M/2, 17 blocks, L = 334) from
+     the seeded initialisation at batch 32: 3 + 20 steps through `fit` with
+     exactly 17 + 17 kernel calls a step, the step against the plain
+     attention (loss < 5e-3, whole gradient < 2e-2), one Adam step;
+ 35. (a) U-ViT-L/2 latent_discrete at batch 64, mesh.sp = 2 in process:
+     one step through the hop kernel against sp = 1 through kernels 1 and 2
+     (loss < 5e-3, whole gradient < 2e-2), then 3 + 10 steps with exactly
+     42 hop launches a step (21 blocks x 2 hops, no relaunch under
+     save_attn); (b) one checkpoint of mscoco_uvit_small's train state
+     (params, EMA and two AdamW moments) with block=True and one with
+     block=False while training goes on: the loop's stall, the write's
+     duration, both files read back equal to the state at the call;
+ 36. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -235,7 +272,7 @@ from panopticdiffusionmodels_torch.data.datasets import CFGLabelDataset
 from panopticdiffusionmodels_torch.evaluation import clip_score, fid, inception, runner, sampler_io
 from panopticdiffusionmodels_torch.models import clip
 from panopticdiffusionmodels_torch.models import get_nnet
-from panopticdiffusionmodels_torch.models.layers import Attention, with_gelu
+from panopticdiffusionmodels_torch.models.layers import Attention, Block, with_gelu
 from panopticdiffusionmodels_torch.models.vae import get_model as get_vae
 from panopticdiffusionmodels_torch.ops.attention import attention_qkv, multi_head_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
@@ -246,6 +283,8 @@ from panopticdiffusionmodels_torch.ops.kernels import ring_hop
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from panopticdiffusionmodels_torch.scripts import bench, bench_fused_ln
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
+from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
+from panopticdiffusionmodels_torch.train.state import TrainState, make_lr_schedule
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3 bandwidth.
@@ -261,23 +300,26 @@ PEAK_BYTES = 3.35e12
 # heads of 72) on the mma.sync loop.
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
                  (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
-                 (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72)]
+                 (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72),
+                 (32, 334, 12, 64)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
 PIXEL_SHAPES = KERNEL_SHAPES[7:10]
 HUGE_SHAPE = KERNEL_SHAPES[10]
+MID_TRAIN_SHAPE = KERNEL_SHAPES[11]  # mscoco_uvit_mid training at batch 32, with lse
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
               (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64),
-              (32, 258, 16, 72)]
+              (32, 258, 16, 72), (32, 334, 12, 64)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
 # row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
 # training at batch 128 (phase 3's last row with lse, and the backward).
 LATENT_TRAIN_SHAPE = BWD_SHAPES[6]
 CIFAR_TRAIN_SHAPE = BWD_SHAPES[7]
 HUGE_TRAIN_SHAPE = BWD_SHAPES[8]  # U-ViT-H/2's latent_discrete step at batch 32
+MID_BWD_SHAPE = BWD_SHAPES[9]  # mscoco_uvit_mid's image-only step at batch 32
 TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
@@ -290,9 +332,14 @@ LAUNCHES_PER_STEP = 26
 # the 256-res shards (295, 167), the TPU verify shapes
 # (scripts/verify_kernel_tpu.py:189-190) at B=2, and one hop whose query and
 # key shards differ in length.
+# Last, sp U-ViT-L/2 training's hop (phase 35): batch 64 folded to 128 rows,
+# 258 / 2 = 129 tokens a shard, 16 heads (B, Lq, Lk, H).
 HOP_SHAPES = [(16, 1063, 1063), (16, 551, 551), (16, 295, 295), (16, 167, 167),
-              (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258), (2, 295, 167)]
+              (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258), (2, 295, 167),
+              (128, 129, 129, 16)]
 HOP_MAIN_SHAPES = HOP_SHAPES[:2]
+SP_UVIT_HOP_SHAPE = HOP_SHAPES[8]
+HOP_TIMED_SHAPES = HOP_MAIN_SHAPES + [SP_UVIT_HOP_SHAPE]
 HOP_HEADS, HOP_DIM = 8, 64
 # Sequence-parallel training of mscoco_uvit_small_512 at sp = 2, in-process:
 # 13 + 13 ring attentions a step, 2 hops each, one hop launch per hop over
@@ -395,6 +442,25 @@ ZOO = [("mscoco_stable_diffusion", 4, 26), ("mscoco_uvit_mid", 4, 17),
 # U-ViT-H/2 (imagenet256_uvit_huge): requests of 32 labels, 29 blocks x 50 NFE
 # kernel-1 launches at HUGE_SHAPE; one latent_discrete step at batch 32.
 HUGE_BLOCKS, HUGE_LABELS, HUGE_BATCH = 29, 32, 32
+# Data-parallel training (phase 31): mscoco_uvit_small at batch 64 through
+# DistributedDataParallel over NCCL at world 1, 20 steps of each arm timed in
+# turns (blocks of DDP_BLOCK steps); synthetic_tiny over two gloo processes on
+# the one card (NCCL refuses two ranks on one card) at a global batch of 16, 3
+# steps, with one head of 64 so that its attention takes the kernels' tested
+# wgmma loops: 5 blocks x 2 streams, one forward and one backward call each.
+DDP_BATCH, DDP_TIMED, DDP_BLOCK = 64, 20, 5
+TINY_WORLD, TINY_BATCH, TINY_STEPS, TINY_CALLS = 2, 16, 3, 10
+# Remat policies (phase 32) on mscoco_uvit_small at batch 64, and the timed
+# steps of each; the policies that replay the attention launch kernel 1 twice.
+REMAT_POLICIES = [None, "nothing", "everything", "dots", "dots_no_batch", "save_attn"]
+REMAT_KEEPS_ATTENTION = ("everything", "save_attn")
+REMAT_TIMED = 5
+# Image-only t2i (phase 34): mscoco_uvit_mid (U-ViT-M/2, 17 blocks, 12 heads of
+# 64, L = 1 + 77 + 256 = 334) at the config's batch of 32.
+MID_BLOCKS, MID_BATCH = 17, 32
+# Sequence-parallel U-ViT-L/2 training (phase 35): latent_discrete at batch 64,
+# mesh.sp = 2 in process, 21 ring attentions of 2 hops a step; 10 timed steps.
+SP_UVIT_HOPS, SP_UVIT_TIMED = 2 * UVIT_L_BLOCKS, 10
 
 
 def zero_counts() -> None:
@@ -665,9 +731,11 @@ def phase_hop(gen):
     Timed at nvalid = Lk in turns with flash SDPA, whose (out, lse) is the
     same partial with den = 1, and beside the plain version."""
     rows = []
-    h, d = HOP_HEADS, HOP_DIM
-    c, scale = h * d, d ** -0.5
-    for b, lq, lk in HOP_SHAPES:
+    d = HOP_DIM
+    scale = d ** -0.5
+    for shape in HOP_SHAPES:
+        b, lq, lk, h = (*shape, HOP_HEADS)[:4]
+        c = h * d
         qkv = (torch.randn((b, lq, 3 * c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
         q = qkv[..., :c]
         kv = (torch.randn((b, lk, 2 * c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
@@ -693,7 +761,7 @@ def phase_hop(gen):
         row = dict(shape=[b, lq, lk, h, d], loop=ring_hop.hop_loop(d), max_rel_dev=worst["rel"],
                    max_abs_err=worst["max_abs_err"])
         print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: {row['loop']} loop")
-        if (b, lq, lk) in HOP_MAIN_SHAPES:
+        if shape in HOP_TIMED_SHAPES:
             full = torch.full((b,), lk, dtype=torch.int32, device="cuda")
             qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
                           for t in (q, kv[..., :c], kv[..., c:]))
@@ -1368,9 +1436,9 @@ def train_loss(metrics) -> float:
     return float(metrics["loss"] + metrics.get("loss_mask", 0.0))
 
 
-def phase_train_parity(trainer, batch_size, impls, tag):
-    """One step through the kernels (impls[0]) and through the plain
-    attention (impls[1]), same weights, batch and draws."""
+def parity_batch(trainer, batch_size):
+    """The first `batch_size` samples of the trainer's dataset and numpy
+    draws for them (seed 0)."""
     rng = np.random.default_rng(0)
     batch = tuple(np.stack(f) for f in zip(*(
         trainer.dataset.train[i] for i in range(batch_size))))
@@ -1386,6 +1454,26 @@ def phase_train_parity(trainer, batch_size, impls, tag):
         m = trainer.config.nnet.mask_size
         noise["eps_m"] = 2.0 * rng.standard_normal(
             (batch_size, m, m, trainer.config.nnet.mask_bits)).astype(np.float32)
+    return batch, noise
+
+
+def compare_steps(a, b, tag, what):
+    """(loss, whole gradient) of two arms of one step: loss relative
+    deviation < 5e-3 and whole-gradient relative deviation < 2e-2."""
+    (ker_loss, ker_grad), (ref_loss, ref_grad) = a, b
+    loss_rel = abs(ker_loss - ref_loss) / abs(ref_loss)
+    grad_rel = rel_dev(ker_grad, ref_grad)
+    print(f"[{tag}] {what}: loss {ker_loss:.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, bar "
+          f"5e-3), whole gradient rel {grad_rel:.2e} (bar 2e-2)")
+    assert np.isfinite(ker_loss) and loss_rel < 5e-3, loss_rel
+    assert torch.isfinite(ker_grad).all() and grad_rel < 2e-2, grad_rel
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel)
+
+
+def phase_train_parity(trainer, batch_size, impls, tag):
+    """One step through the kernels (impls[0]) and through the plain
+    attention (impls[1]), same weights, batch and draws."""
+    batch, noise = parity_batch(trainer, batch_size)
     out = {}
     for impl in impls:
         set_attn_impl(trainer.nnet, impl)
@@ -1394,14 +1482,8 @@ def phase_train_parity(trainer, batch_size, impls, tag):
     set_attn_impl(trainer.nnet, impls[0])
     for p in trainer.state.params.values():
         p.grad = None
-    (ker_loss, ker_grad), (ref_loss, ref_grad) = out[impls[0]], out[impls[1]]
-    loss_rel = abs(ker_loss - ref_loss) / abs(ref_loss)
-    grad_rel = rel_dev(ker_grad, ref_grad)
-    print(f"[{tag}] train step B={batch_size}, attn_impl {impls[0]!r} vs {impls[1]!r}: loss "
-          f"{ker_loss:.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}, bar 5e-3), "
-          f"whole gradient rel {grad_rel:.2e} (bar 2e-2)")
-    assert np.isfinite(ker_loss) and loss_rel < 5e-3, loss_rel
-    assert torch.isfinite(ker_grad).all() and grad_rel < 2e-2, grad_rel
+    compare_steps(out[impls[0]], out[impls[1]], tag,
+                  f"train step B={batch_size}, attn_impl {impls[0]!r} vs {impls[1]!r}")
 
 
 def phase_train(trainer, tag, per_step, warmup=WARMUP_STEPS, timed=TIMED_STEPS):
@@ -1443,10 +1525,10 @@ def phase_train_profile(trainer, step_s, tag):
                    f"train step (batch {trainer.config.train.batch_size})", step_s)
 
 
-def make_trainer(name, tmp, mesh=None):
+def make_trainer(name, tmp, mesh=None, pretrained=True):
     """`Trainer` for a zoo config at full width and depth in fine-tune mode (a
-    seeded reference-format .pth, so the image stream is frozen) on synthetic
-    coco data at the config's shapes."""
+    seeded reference-format .pth, so the image stream is frozen), or from the
+    seeded initialisation, on synthetic coco data at the config's shapes."""
     config = get_config(name)
     h, w, c = config.z_shape
     m = config.nnet.mask_size
@@ -1456,12 +1538,13 @@ def make_trainer(name, tmp, mesh=None):
     config.train.log_interval = 5
     config.num_workers = 4
     config.mesh.update(mesh or {})
-    config.pretrained = os.path.join(tmp, f"{name}.pth")
-    write_pretrained(config.pretrained, config)
+    config.pretrained = os.path.join(tmp, f"{name}.pth") if pretrained else ""
+    if pretrained:
+        write_pretrained(config.pretrained, config)
     return Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
 
 
-def make_latent_trainer(tmp):
+def make_latent_trainer(tmp, mesh=None):
     """`Trainer` for imagenet256_uvit_large (latent_discrete, U-ViT-L/2 at
     full width and depth, from the seeded initialisation) at batch 64 on
     synthetic latent moments (32, 32, 8) with labels in [0, 1000): the null
@@ -1474,6 +1557,7 @@ def make_latent_trainer(tmp):
     config.train.batch_size = LATENT_BATCH
     config.train.log_interval = 5
     config.num_workers = 4
+    config.mesh.update(mesh or {})
     trainer = Trainer(config, os.path.join(tmp, "run_imagenet256_uvit_large"), device="cuda")
     trainer.dataset.train = CFGLabelDataset(trainer.dataset.train, P_UNCOND, 1000)
     assert trainer.config.nnet.use_checkpoint and trainer.config.nnet.remat_policy == "save_attn"
@@ -2102,6 +2186,369 @@ def phase_uvit_huge(pipe, tmp):
     return counts["fused_attention_qkv"], train_counts
 
 
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(calls, timeout: int = 300) -> list:
+    """Run each `chip_smoke.<call>` in a child process of its own, all at
+    once, from this file's directory; returns their stdouts, raising with
+    every log if one failed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [here, os.environ.get("PYTHONPATH", "")])))
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as c; c.{call}"],
+                              cwd=here, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for call in calls]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return logs
+
+
+@contextlib.contextmanager
+def attn_impl(model: torch.nn.Module, impl: str):
+    set_attn_impl(model, impl)
+    yield
+
+
+@contextlib.contextmanager
+def single_process(trainer):
+    """The trainer's step without its data-parallel wrapper (the reducer
+    ignores a backward whose forward did not go through it)."""
+    saved = trainer.model, trainer.dp
+    trainer.model, trainer.dp = trainer.nnet, None
+    try:
+        yield
+    finally:
+        trainer.model, trainer.dp = saved
+
+
+def step_blocks(trainer, arms: dict, order: str, steps: int) -> dict:
+    """Time `steps`-step blocks of `trainer.train_step` on the trainer's own
+    stream under each arm's context, in the given order of arm letters;
+    returns the median ms a step of each arm and the spread."""
+    stream = trainer.data_stream(start_step=trainer.state.step)
+    times = {k: [] for k in arms}
+    for arm in order:
+        with arms[arm]():
+            trainer.train_step(next(stream))  # the arm's first step is not timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.train_step(next(stream))
+            torch.cuda.synchronize()
+        times[arm].append((time.perf_counter() - t0) / steps * 1e3)
+    return {k: dict(step_ms=float(np.median(v)), spread=[min(v), max(v)])
+            for k, v in times.items()}
+
+
+def ddp_world1_child(tmp: str, port: int, out: str) -> None:
+    """Phase 31a in a child process: mscoco_uvit_small at batch 64, fine-tune
+    mode, through DistributedDataParallel over NCCL at world 1, against the
+    same trainer without the wrapper on the same batch and draws; then 20
+    steps of each, timed in turns.  Writes the result as JSON to `out`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        trainer = make_trainer("mscoco_uvit_small", tmp)
+        assert trainer.dp is not None and trainer.dp.world_size == 1
+        assert isinstance(trainer.model, torch.nn.parallel.DistributedDataParallel)
+        batch, noise = parity_batch(trainer, DDP_BATCH)
+        arms = {}
+        for arm, ctx in (("ddp", contextlib.nullcontext), ("single", single_process)):
+            with ctx(trainer):
+                zero_counts()
+                metrics = trainer.loss_and_grads(batch, noise)
+                torch.cuda.synchronize()
+                arms[arm] = (train_loss(metrics), grads_vector(trainer), read_counts())
+        for k, n in arms["ddp"][2].items():
+            want = LAUNCHES_PER_STEP if k in ("fused_attention_qkv",
+                                              "fused_attention_qkv_vjp") else 0
+            assert n == want, arms["ddp"][2]
+        parity = compare_steps(arms["ddp"][:2], arms["single"][:2], "31a",
+                               f"DDP (NCCL, world 1) vs one process, B={DDP_BATCH}")
+        timing = step_blocks(trainer, {"D": contextlib.nullcontext,
+                                       "S": lambda: single_process(trainer)},
+                             "DSSD" * (DDP_TIMED // DDP_BLOCK // 2), DDP_BLOCK)
+        with open(out, "w") as f:
+            json.dump(dict(parity, launches=arms["ddp"][2], ddp=timing["D"],
+                           single=timing["S"]), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tiny_cuda_config():
+    """synthetic_tiny on the card: bf16 autocast (the kernels take bf16), one
+    head of 64, a checkpoint and a log line every step."""
+    config = get_config("synthetic_tiny")
+    config.compute_dtype = "bfloat16"
+    config.nnet.update(embed_dim=64, num_heads=1)
+    config.num_workers = 0
+    config.train.update(batch_size=TINY_BATCH, n_steps=TINY_STEPS, save_interval=1,
+                        log_interval=1)
+    return config
+
+
+def ddp_gloo_child(rank: int, port: int, tmp: str) -> None:
+    """Phase 31b: one of two processes on the one card over gloo, training
+    synthetic_tiny through `fit` in its own workdir `tmp/wd{rank}`; writes
+    its parameters, launch counts and step time to `tmp/rank{rank}.pt`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TINY_WORLD, rank=rank)
+    try:
+        trainer = Trainer(tiny_cuda_config(), os.path.join(tmp, f"wd{rank}"), device="cuda:0")
+        assert trainer.dp.world_size == TINY_WORLD and trainer.is_main == (rank == 0)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save(dict(params={n: p.detach().cpu() for n, p in trainer.state.params.items()},
+                        launches=read_counts(), step_ms=wall / TINY_STEPS * 1e3,
+                        step=trainer.state.step), os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp(tmp: str):
+    """31a: DDP at world 1 over NCCL against one process (a child process,
+    so that no process group outlives it here); 31b: two gloo processes on
+    the one card against one process at their global batch."""
+    out = os.path.join(tmp, "ddp_world1.json")
+    run_children([f"ddp_world1_child({tmp!r}, {free_port()}, {out!r})"], timeout=600)
+    with open(out) as f:
+        a = json.load(f)
+    print(f"[31a] DDP over NCCL at world 1, mscoco_uvit_small B={DDP_BATCH}: step "
+          f"{a['ddp']['step_ms']:.2f} ms {fmt_spread(a['ddp']['spread'])} vs one process "
+          f"{a['single']['step_ms']:.2f} ms {fmt_spread(a['single']['spread'])} "
+          f"(x{a['ddp']['step_ms'] / a['single']['step_ms']:.3f}); loss rel {a['loss_rel']:.2e}, "
+          f"gradient rel {a['grad_rel']:.2e}; launches a step {a['launches']} ({card_line()})")
+
+    port = free_port()
+    run_children([f"ddp_gloo_child({r}, {port}, {tmp!r})" for r in range(TINY_WORLD)])
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+             for r in range(TINY_WORLD)]
+    single = Trainer(tiny_cuda_config(), os.path.join(tmp, "wd_single"), device="cuda")
+    start = torch.cat([p.detach().flatten().float().cpu() for p in single.state.params.values()])
+    t0 = time.perf_counter()
+    single.fit()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / TINY_STEPS * 1e3
+    names = list(single.state.params)
+    for name in names:
+        assert torch.equal(ranks[1]["params"][name], ranks[0]["params"][name]), name
+    moved = torch.cat([ranks[0]["params"][n].flatten().float() for n in names]) - start
+    want = torch.cat([single.state.params[n].detach().flatten().float().cpu()
+                      for n in names]) - start
+    update_rel = rel_dev(moved, want)
+    per_step = {k: (TINY_STEPS * TINY_CALLS if k in ("fused_attention_qkv",
+                                                     "fused_attention_qkv_vjp") else 0)
+                for k in read_counts()}
+    for r in ranks:
+        assert r["step"] == TINY_STEPS and r["launches"] == per_step, r["launches"]
+    ckpts = sorted(os.listdir(os.path.join(tmp, "wd0", "ckpts")))
+    assert ckpts == [f"{s}.ckpt" for s in range(1, TINY_STEPS + 1)], ckpts
+    with open(os.path.join(tmp, "wd0", "metrics.jsonl")) as f:
+        assert len(f.read().splitlines()) == TINY_STEPS
+    assert not os.path.exists(os.path.join(tmp, "wd1")), os.listdir(os.path.join(tmp, "wd1"))
+    print(f"[31b] two gloo processes on one card, synthetic_tiny global B={TINY_BATCH}: ranks' "
+          f"parameters bit-identical after {TINY_STEPS} steps, update vs one process at "
+          f"B={TINY_BATCH} rel {update_rel:.2e} (bar 2e-2), only rank 0 wrote; step "
+          f"{ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} ms (ranks, checkpoint every "
+          f"step included) vs one process {single_ms:.1f} ms; launches {ranks[0]['launches']}")
+    assert update_rel < 2e-2, update_rel
+    return a
+
+
+def set_remat(model: torch.nn.Module, use_checkpoint: bool, policy) -> None:
+    for m in model.modules():
+        if isinstance(m, Block):
+            m.use_checkpoint, m.remat_policy = use_checkpoint, policy
+
+
+def phase_remat(trainer):
+    """32: each remat policy (and use_checkpoint=False) on the same weights,
+    batch and draws: the gradient against use_checkpoint=False, kernel
+    launches a step; then each timed over REMAT_TIMED steps with its peak
+    memory."""
+    batch, noise = parity_batch(trainer, DDP_BATCH)
+    arms = [(False, "save_attn")] + [(True, p) for p in REMAT_POLICIES]
+    grads, results = {}, {}
+    for use, policy in arms:
+        key = str(policy) if use else "use_checkpoint=False"
+        set_remat(trainer.nnet, use, policy)
+        zero_counts()
+        metrics = trainer.loss_and_grads(batch, noise)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        grads[key] = (train_loss(metrics), grads_vector(trainer))
+        fwd = LAUNCHES_PER_STEP * (1 if not use or policy in REMAT_KEEPS_ATTENTION else 2)
+        want = {k: {"fused_attention_qkv": fwd,
+                    "fused_attention_qkv_vjp": LAUNCHES_PER_STEP}.get(k, 0) for k in counts}
+        assert counts == want, (key, counts)
+        results[key] = dict(launches=counts)
+        if use:
+            results[key].update(compare_steps(grads[key], grads["use_checkpoint=False"], "32",
+                                              f"remat_policy={policy!r} vs no checkpoint"))
+    stream = trainer.data_stream(start_step=trainer.state.step)
+    for use, policy in arms:
+        key = str(policy) if use else "use_checkpoint=False"
+        set_remat(trainer.nnet, use, policy)
+        trainer.train_step(next(stream))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_TIMED):
+            trainer.train_step(next(stream))
+        torch.cuda.synchronize()
+        results[key].update(step_ms=(time.perf_counter() - t0) / REMAT_TIMED * 1e3,
+                            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[32] {key}: step {results[key]['step_ms']:.2f} ms, peak "
+              f"{results[key]['max_memory_allocated_gb']:.2f} GB, launches a step "
+              f"{results[key]['launches']}")
+    set_remat(trainer.nnet, True, trainer.config.nnet.remat_policy)
+    print(f"[32] remat policies, mscoco_uvit_small B={DDP_BATCH}: {json.dumps(results)} "
+          f"({card_line()})")
+    return results
+
+
+def phase_pallas_recompute(trainer):
+    """33: attn_impl='pallas_recompute' (kernel 1 without lse, the plain f32
+    recompute backward) against 'auto' on the same weights, batch and draws;
+    launches a step; both timed in turns."""
+    batch, noise = parity_batch(trainer, DDP_BATCH)
+    out = {}
+    for impl in ("auto", "pallas_recompute"):
+        set_attn_impl(trainer.nnet, impl)
+        zero_counts()
+        metrics = trainer.loss_and_grads(batch, noise)
+        torch.cuda.synchronize()
+        out[impl] = (train_loss(metrics), grads_vector(trainer), read_counts())
+    counts = out["pallas_recompute"][2]
+    assert counts == {k: LAUNCHES_PER_STEP if k == "fused_attention_qkv" else 0
+                      for k in counts}, counts
+    parity = compare_steps(out["pallas_recompute"][:2], out["auto"][:2], "33",
+                           f"pallas_recompute vs auto, B={DDP_BATCH}")
+
+    timing = step_blocks(trainer, {"A": lambda: attn_impl(trainer.nnet, "auto"),
+                                   "R": lambda: attn_impl(trainer.nnet, "pallas_recompute")},
+                         "ARRA", 3)
+    set_attn_impl(trainer.nnet, "auto")
+    print(f"[33] pallas_recompute step {timing['R']['step_ms']:.2f} ms "
+          f"{fmt_spread(timing['R']['spread'])} vs auto {timing['A']['step_ms']:.2f} ms "
+          f"{fmt_spread(timing['A']['spread'])} (x{timing['R']['step_ms'] / timing['A']['step_ms']:.2f});"
+          f" launches a step {counts} ({card_line()})")
+    return dict(parity, launches=counts, recompute=timing["R"], auto=timing["A"])
+
+
+def phase_image_only(tmp: str):
+    """34: mscoco_uvit_mid (image-only t2i) from the seeded initialisation at
+    batch 32: 3 + 20 steps through `fit` with 17 + 17 kernel calls a step,
+    the parity step against the plain attention, then one Adam step."""
+    trainer = make_trainer("mscoco_uvit_mid", tmp, pretrained=False)
+    assert not trainer.config.nnet.enable_panoptic
+    assert trainer.config.train.batch_size == MID_BATCH
+    counts, step_s = phase_train(trainer, "34", {"fused_attention_qkv": MID_BLOCKS,
+                                                 "fused_attention_qkv_vjp": MID_BLOCKS})
+    phase_train_parity(trainer, MID_BATCH, ("auto", "plain"), "34")
+    config = trainer.config
+    trainer.state = TrainState(
+        trainer.nnet, make_lr_schedule(config.optimizer.lr, "customized"),
+        betas=config.optimizer.betas, optimizer="adam")
+    before = grads_vector_params(trainer)
+    stream = trainer.data_stream(start_step=0)
+    metrics = trainer.train_step(next(stream))
+    loss = float(metrics["loss"])
+    moved = float(torch.linalg.vector_norm(grads_vector_params(trainer) - before))
+    assert isinstance(trainer.state.optimizer, torch.optim.Adam)
+    assert np.isfinite(loss) and moved > 0, (loss, moved)
+    print(f"[34] one Adam step: loss {loss:.5f}, parameters moved by {moved:.3e} "
+          f"({card_line()})")
+    return counts, step_s
+
+
+def grads_vector_params(trainer) -> torch.Tensor:
+    return torch.cat([p.detach().flatten().float() for p in trainer.state.params.values()])
+
+
+def phase_sp_uvit(tmp: str):
+    """35a: U-ViT-L/2 latent_discrete at batch 64, mesh.sp = 2 in process:
+    one step through the ring's hop kernel against sp = 1 through kernels 1
+    and 2 (same weights, batch and draws), then 3 + 10 steps with exactly 42
+    hop launches a step and none of the other kernels."""
+    trainer = make_latent_trainer(tmp, mesh=dict(sp=SP, sp_mode="in_process"))
+    assert trainer.nnet.sp is trainer.sp and trainer.config.train.batch_size == LATENT_BATCH
+    batch, noise = parity_batch(trainer, LATENT_BATCH)
+    out = {}
+    for arm, sp, impl in (("sp2", trainer.sp, "ring"), ("sp1", None, "auto")):
+        set_sp(trainer.nnet, sp)
+        set_attn_impl(trainer.nnet, impl)
+        zero_counts()
+        metrics = trainer.loss_and_grads(batch, noise)
+        torch.cuda.synchronize()
+        out[arm] = (train_loss(metrics), grads_vector(trainer), read_counts())
+    set_sp(trainer.nnet, trainer.sp)
+    set_attn_impl(trainer.nnet, "ring")
+    assert out["sp2"][2] == {k: SP_UVIT_HOPS if k == "attention_hop" else 0
+                             for k in out["sp2"][2]}, out["sp2"][2]
+    compare_steps(out["sp2"][:2], out["sp1"][:2], "35a",
+                  f"U-ViT-L/2 sp=2 (ring, hop kernel) vs sp=1 (kernels 1 and 2), "
+                  f"B={LATENT_BATCH}")
+    counts, step_s = phase_train(trainer, "35a", {"attention_hop": SP_UVIT_HOPS},
+                                 timed=SP_UVIT_TIMED)
+    print(f"[35a] sp U-ViT-L/2 step {step_s * 1e3:.1f} ms ({card_line()})")
+    return counts, step_s
+
+
+def phase_async_checkpoint(trainer, tmp: str):
+    """35b: one save of the mscoco_uvit_small train state with block=True and
+    one with block=False (training goes on while it writes): the loop's
+    stall, the write's duration; both files read back equal the state at
+    the call."""
+    state = trainer.state
+    stream = trainer.data_stream(start_step=state.step)
+    trainer.train_step(next(stream))
+    root = os.path.join(tmp, "ckpt_timing")
+    result = {}
+    for block in (True, False):
+        torch.cuda.synchronize()
+        want = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+        step = state.step
+        t0 = time.perf_counter()
+        path = ckpt_lib.save_checkpoint(root, state, block=block)
+        stall = time.perf_counter() - t0
+        steps_meanwhile = 0
+        if not block:
+            while ckpt_lib.writing():
+                trainer.train_step(next(stream))
+                torch.cuda.synchronize()
+                steps_meanwhile += 1
+        ckpt_lib.wait_for_saves()
+        write = time.perf_counter() - t0
+        payload = ckpt_lib.load_checkpoint(path)
+        assert payload["step"] == step
+        assert all(torch.equal(payload["params"][n], p) for n, p in want.items())
+        result["block" if block else "async"] = dict(
+            stall_s=stall, write_s=write, steps_during_write=steps_meanwhile,
+            file_gb=os.path.getsize(path) / 1e9)
+    print(f"[35b] checkpoint of mscoco_uvit_small's train state: {json.dumps(result)}; "
+          f"files read back equal the state at the call ({card_line()})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -2180,6 +2627,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
+        ddp = phase_ddp(tmp)
+        torch.cuda.empty_cache()
+        small = make_trainer("mscoco_uvit_small", tmp)
+        remat = phase_remat(small)
+        recompute = phase_pallas_recompute(small)
+        mid_counts, _ = phase_image_only(tmp)
+        torch.cuda.empty_cache()
+        sp_uvit_counts, _ = phase_sp_uvit(tmp)
+        torch.cuda.empty_cache()
+        phase_async_checkpoint(small, tmp)
+        del small
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
         unet_flops, _ = phase_unet_forward()
         torch.cuda.empty_cache()
         phase_unet_serving(unet_flops)
@@ -2226,7 +2687,15 @@ def main() -> int:
                              for name, n in zoo_launches.items()},
                           "U-ViT-H/2 ImageNet-256 serving (3 requests)": huge_launches,
                           "U-ViT-H/2 latent_discrete step (batch 32)":
-                              huge_train_counts["fused_attention_qkv"]},
+                              huge_train_counts["fused_attention_qkv"],
+                          "DDP step at world 1 (child process, batch 64)":
+                              ddp["launches"]["fused_attention_qkv"],
+                          "remat policies (one counted step of each of 7 arms)":
+                              sum(r["launches"]["fused_attention_qkv"] for r in remat.values()),
+                          "pallas_recompute step (batch 64)":
+                              recompute["launches"]["fused_attention_qkv"],
+                          f"mscoco_uvit_mid image-only training ({TIMED_STEPS} steps)":
+                              mid_counts["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -2235,7 +2704,8 @@ def main() -> int:
             "dual-stream layer runs per NFE; the ImageNet-256 serving shape is the row "
             f"{list(IMAGENET_SHAPE)}, the pixel-space shapes the rows "
             f"{[list(x) for x in PIXEL_SHAPES]}, U-ViT-H/2 serving the row "
-            f"{list(HUGE_SHAPE)}; the fused arm of the A/B chain launches "
+            f"{list(HUGE_SHAPE)}, mscoco_uvit_mid training (with lse) the row "
+            f"{list(MID_TRAIN_SHAPE)}; the fused arm of the A/B chain launches "
             "this kernel inside fused_ln_qkv_attention, which counts it there",
         shapes=rows)
     train_rows = [r for r in bwd_rows if tuple(r["shape"]) in TRAIN_SHAPES]
@@ -2252,7 +2722,14 @@ def main() -> int:
                           f"CIFAR-10 S/2 pixel_sde training ({TIMED_STEPS} steps)":
                               pixel_counts["fused_attention_qkv_vjp"],
                           "U-ViT-H/2 latent_discrete step (batch 32)":
-                              huge_train_counts["fused_attention_qkv_vjp"]},
+                              huge_train_counts["fused_attention_qkv_vjp"],
+                          "DDP step at world 1 (child process, batch 64)":
+                              ddp["launches"]["fused_attention_qkv_vjp"],
+                          "remat policies (one counted step of each of 7 arms)":
+                              sum(r["launches"]["fused_attention_qkv_vjp"]
+                                  for r in remat.values()),
+                          f"mscoco_uvit_mid image-only training ({TIMED_STEPS} steps)":
+                              mid_counts["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
@@ -2260,7 +2737,8 @@ def main() -> int:
         per="one call at L=334 plus one at L=590 (B=64, H=8, D=64), the pair each "
             "dual-stream layer runs per train step; one call is two CUDA kernels; the "
             f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}, the CIFAR-10 "
-            f"one {list(CIFAR_TRAIN_SHAPE)}, the U-ViT-H/2 one {list(HUGE_TRAIN_SHAPE)}",
+            f"one {list(CIFAR_TRAIN_SHAPE)}, the U-ViT-H/2 one {list(HUGE_TRAIN_SHAPE)}, the "
+            f"mscoco_uvit_mid one {list(MID_BWD_SHAPE)}",
         shapes=bwd_rows)
     hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
     per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",
@@ -2270,14 +2748,17 @@ def main() -> int:
         source="panopticdiffusionmodels_torch/ops/kernels/csrc/ring_hop.cu",
         replaces="panopticdiffusionmodels_tpu/ops/pallas/ring_hop.py:103",
         launches=sp_counts["attention_hop"],
-        launches_by_path={f"sp training ({TIMED_STEPS} steps)": sp_counts["attention_hop"]},
+        launches_by_path={f"sp training ({TIMED_STEPS} steps)": sp_counts["attention_hop"],
+                          f"sp U-ViT-L/2 latent_discrete training ({SP_UVIT_TIMED} steps)":
+                              sp_uvit_counts["attention_hop"]},
         max_abs_err=max(r["max_abs_err"] for r in hop_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in hop_rows),
         kernel_ms=per_hop_pair["ms"], **per_hop_pair,
         bound_by=max(hop_main, key=lambda r: r["bound_ms"])["bound_by"],
         per="one hop at Lq=Lk=1063 plus one at Lq=Lk=551 (B=16 folded, H=8, D=64, "
             "nvalid=Lk), the pair each sp=2 dual-stream layer runs twice per train step; "
-            "library_ms is flash SDPA (out, lse) on the same q, k, v",
+            f"sp U-ViT-L/2 training's hop is the row {list(SP_UVIT_HOP_SHAPE)} (B, Lq, Lk, "
+            "H); library_ms is flash SDPA (out, lse) on the same q, k, v",
         shapes=hop_rows)
     mha_main = mha_rows[0]
     mha = dict(

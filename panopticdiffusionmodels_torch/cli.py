@@ -15,6 +15,11 @@ workdir/mask) and takes FID when the stats file and the Inception weights
 `sample` writes one mini-batch.  Weights to evaluate: `--config.nnet_path=<reference .pth or a
 checkpoint in a ckpts directory>`, else the workdir's own checkpoints.
 
+Data-parallel training on N cards, one process per card (the default mesh,
+dp = -1, takes every process; `train.batch_size` is the global batch):
+
+    torchrun --nproc_per_node=N -m panopticdiffusionmodels_torch train --config=...
+
 Sequence-parallel training on several cards, one process per sp rank:
 
     torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \
@@ -23,11 +28,13 @@ Sequence-parallel training on several cards, one process per sp rank:
 Under torchrun (WORLD_SIZE set) the command joins the process group first:
 NCCL with each process on `cuda:LOCAL_RANK`, or gloo with `--device=cpu`.
 On one card, `--config.mesh.sp_mode=in_process` runs every shard in one
-process instead.
+process instead.  Only rank 0 makes the workdir and writes `output.log`;
+the other ranks log to the console with their rank in each line.
 """
 from __future__ import annotations
 
 import ast
+import datetime
 import importlib.util
 import logging
 import os
@@ -89,20 +96,30 @@ def _parse(argv):
     return opts, rest
 
 
+# How long a collective may wait: the other ranks of a data-parallel run wait
+# at a barrier while rank 0 runs a FID evaluation (tens of thousands of
+# samples), far past torch's default of 10 minutes.
+DIST_TIMEOUT = datetime.timedelta(hours=6)
+
+
 def init_distributed(device: str) -> str:
     """Join the torchrun process group (nccl on cuda:LOCAL_RANK, gloo on the
-    CPU) when WORLD_SIZE says there is one; returns the device to train on."""
+    CPU, both with `DIST_TIMEOUT`) when WORLD_SIZE says there is one;
+    returns the device to train on."""
     import torch
     import torch.distributed as dist
 
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return device
     if device == "cpu":
-        dist.init_process_group("gloo")
+        if not dist.is_initialized():
+            dist.init_process_group("gloo", timeout=DIST_TIMEOUT)
         return device
     local = int(os.environ.get("LOCAL_RANK", "0"))
     torch.cuda.set_device(local)
-    dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", device_id=torch.device("cuda", local),
+                                timeout=DIST_TIMEOUT)
     return f"cuda:{local}"
 
 
@@ -117,22 +134,26 @@ def _run(argv: List[str], action, hparams: Optional[str] = None):
     wd = opts["workdir"] or os.path.join("results", config.get("config_name", "run"),
                                          config.hparams)
     config.workdir = wd
-    os.makedirs(wd, exist_ok=True)
-    fmt = "%(asctime)s %(message)s"
+    rank = int(os.environ.get("RANK", "0"))  # torchrun's; 0 without it
+    fmt = "%(asctime)s %(message)s" if rank == 0 else f"%(asctime)s [rank {rank}] %(message)s"
     logging.basicConfig(level=logging.INFO, format=fmt)  # the console, once per process
     root = logging.getLogger()
     root.setLevel(logging.INFO)
-    log_file = logging.FileHandler(os.path.join(wd, "output.log"))
-    log_file.setFormatter(logging.Formatter(fmt))
-    root.addHandler(log_file)
+    log_file = None
+    if rank == 0:
+        os.makedirs(wd, exist_ok=True)
+        log_file = logging.FileHandler(os.path.join(wd, "output.log"))
+        log_file.setFormatter(logging.Formatter(fmt))
+        root.addHandler(log_file)
     try:
         logging.info(f"workdir: {wd}")
         from .evaluation import runner
 
         return action(config, wd, opts["device"], opts["inception"] or runner.INCEPTION_WEIGHTS)
     finally:
-        root.removeHandler(log_file)
-        log_file.close()
+        if log_file is not None:
+            root.removeHandler(log_file)
+            log_file.close()
 
 
 def _train(config, workdir, device, inception):

@@ -1,10 +1,14 @@
 """Host input pipeline: threaded batch assembly and a device feed one step ahead.
 
-Port of `panopticdiffusionmodels_tpu/data/loader.py` for one process:
+Port of `panopticdiffusionmodels_tpu/data/loader.py`:
 
   * `Loader` shuffles with the same `random.Random(seed)`, drops the last
     partial batch the same way and fast-forwards index-only (`skip`), so it
-    yields exactly the JAX loader's batches; a thread pool assembles them;
+    yields exactly the JAX loader's batches; a thread pool assembles them.
+    Over several processes `batch_size` stays the GLOBAL batch: every
+    process draws the same shuffle from the same seed and loads only its
+    rows of each global batch, the contiguous `batch_size / process_count`
+    slice of process `process_index` by default, or `local_rows`;
   * `prefetch_to_device` converts each numpy batch to tensors on a
     background thread (optional casts, pinned host memory for a card) and
     starts its host-to-device copy (`non_blocking`, on the current stream)
@@ -31,12 +35,22 @@ def _collate(samples):
 
 class Loader:
     """Infinite shuffled batch iterator over a map-style dataset; each epoch
-    drops its last partial batch."""
+    drops its last partial batch.  Yields this process's rows of each global
+    batch of `batch_size`."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 8, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 8, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1,
+                 local_rows: Optional[slice] = None):
         if len(dataset) < batch_size:
             raise ValueError(f"dataset of {len(dataset)} samples is smaller than one batch "
                              f"({batch_size})")
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by {process_count} "
+                             "processes")
+        if local_rows is None:
+            per = batch_size // process_count
+            local_rows = slice(process_index * per, (process_index + 1) * per)
+        self.local_rows = local_rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.pool = ThreadPoolExecutor(max_workers=num_workers) if num_workers > 0 else None
@@ -78,7 +92,7 @@ class Loader:
         else:
             idx, start = self._epoch_indices(), 0
         for b in range(start, self._n_batches(idx)):
-            batch_idx = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            batch_idx = idx[b * self.batch_size:(b + 1) * self.batch_size][self.local_rows]
             if self.pool is not None:
                 samples = list(self.pool.map(self.dataset.__getitem__, batch_idx))
             else:

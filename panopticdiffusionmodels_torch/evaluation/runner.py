@@ -315,6 +315,7 @@ def make_fid_gated_callback(n_samples: Optional[int] = None,
 
     def callback(trainer: Trainer, step: int):
         config = trainer.config
+        ckpt_lib.wait_for_saves()  # the last round's write is on disk before this one decides
         if not _fid_ready(trainer, inception_path):
             log.info("FID assets missing; saving ungated checkpoint")
             ckpt_lib.save_checkpoint(trainer.ckpt_root, trainer.state)

@@ -9,13 +9,14 @@ while LayerNorm statistics and the attention softmax stay in f32.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import attention_qkv
 
@@ -135,18 +136,48 @@ class Attention(nn.Module):
         return self.proj(self.attend(self.qkv(x)))
 
 
+_aten = torch.ops.aten
+# The aten ops of a JAX `dot_general` in this block: a Dense on (B, L, C)
+# tokens is an mm / addmm on the flattened rows, the plain attention's batched
+# einsums are bmm (`torch.matmul` of 4-d tensors).
+_DENSE_DOTS = [_aten.mm.default, _aten.addmm.default]
+_BATCHED_DOTS = [_aten.bmm.default, _aten.baddbmm.default]
+# remat_policy -> the ops whose outputs the recompute keeps (JAX
+# `models/scan_stack.py::resolve_remat_policy`); None and '' are nn.remat's
+# default, recompute everything.  'everything' and 'save_attn' are handled
+# by `Block.forward` itself.
+REMAT_SAVES = {None: [], "": [], "nothing": [], "dots": _DENSE_DOTS + _BATCHED_DOTS,
+               "dots_no_batch": _DENSE_DOTS, "everything": None, "save_attn": None}
+
+
 class Block(nn.Module):
     """Pre-norm transformer block; the long-skip projection runs before the
     attention residual, as in the reference.
 
-    `use_checkpoint` with `remat_policy='save_attn'` (the JAX package's
-    `scan_stack.resolve_remat_policy`): under grad mode the two regions
-    around the attention, norm1 -> qkv and proj -> +res -> norm2 -> mlp ->
-    +res, are recomputed in backward (non-reentrant `torch.utils.checkpoint`),
-    while the attention itself stays outside them, so its output is kept and
-    its forward kernel is not replayed (under `attn_impl='ring'` the ring's
-    output is the kept tensor, and no hop is relaunched).  Values equal the
-    unchecked block."""
+    `use_checkpoint` rematerialises the block in backward under grad mode
+    (non-reentrant `torch.utils.checkpoint`) with the JAX package's
+    `remat_policy` (`models/scan_stack.py::resolve_remat_policy`, applied to
+    each block as `nn.remat(Block, policy=...)` in `models/uvit.py` /
+    `uvit_t2i.py`).  Values equal the unchecked block under every policy;
+    what differs is what the backward replays:
+
+      * None / '' / 'nothing': the whole block, the attention's forward
+        kernel included;
+      * 'everything': nothing (the block is not checkpointed);
+      * 'dots': every dot_general output is kept, the Dense matmuls and the
+        plain attention's batched einsums (selective checkpointing that
+        saves aten mm / addmm / bmm / baddbmm); the rest is replayed.  The
+        attention kernel is not a dot: it is a ctypes launch into a buffer
+        from `torch.empty`, which the policy never keeps, so the replay
+        launches it again into a fresh buffer;
+      * 'dots_no_batch': the Dense matmuls only (mm / addmm); the attention
+        is replayed whichever path it takes;
+      * 'save_attn': two regions around the attention, norm1 -> qkv and
+        proj -> +res -> norm2 -> mlp -> +res, are replayed, while the
+        attention itself stays outside them, so its output is kept and its
+        forward kernel is not replayed (under `attn_impl='ring'` the ring's
+        output is the kept tensor, and no hop is relaunched).
+    """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -154,11 +185,11 @@ class Block(nn.Module):
                  use_checkpoint: bool = False, remat_policy: Optional[str] = "save_attn",
                  sp=None):
         super().__init__()
-        if use_checkpoint and remat_policy != "save_attn":
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} is not ported yet (only 'save_attn' is); "
-                "the other policies come with a later PR")
+        if use_checkpoint and remat_policy not in REMAT_SAVES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; one of "
+                             f"{sorted(k for k in REMAT_SAVES if k)}")
         self.use_checkpoint = use_checkpoint
+        self.remat_policy = remat_policy
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_impl, sp)
         self.norm2 = LayerNorm(dim, eps=1e-5)
@@ -172,13 +203,24 @@ class Block(nn.Module):
         x = x + self.attn.proj(a)
         return x + self.mlp(self.norm2(x))
 
-    def forward(self, x, skip=None):
+    def _body(self, x, skip=None):
         if self.skip_linear is not None:
             x = self.skip_linear(torch.cat([x, skip], dim=-1))
-        if self.use_checkpoint and torch.is_grad_enabled():
+        return self._out(x, self.attn.attend(self._qkv(x)))
+
+    def forward(self, x, skip=None):
+        policy = self.remat_policy
+        if not (self.use_checkpoint and torch.is_grad_enabled()) or policy == "everything":
+            return self._body(x, skip)
+        if policy == "save_attn":
+            if self.skip_linear is not None:
+                x = self.skip_linear(torch.cat([x, skip], dim=-1))
             a = self.attn.attend(checkpoint(self._qkv, x, use_reentrant=False))
             return checkpoint(self._out, x, a, use_reentrant=False)
-        return self._out(x, self.attn.attend(self._qkv(x)))
+        saves = REMAT_SAVES[policy]
+        context = {} if not saves else dict(
+            context_fn=functools.partial(create_selective_checkpoint_contexts, saves))
+        return checkpoint(self._body, x, skip, use_reentrant=False, **context)
 
 
 def time_embed(embed_dim: int, mlp: bool) -> nn.Module:

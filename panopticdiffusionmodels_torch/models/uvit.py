@@ -11,8 +11,11 @@ reference's parameter names (`libs/uvit.py`) and NCHW inputs:
 `num_classes` <= 0 is unconditional (one extra token, the time token);
 > 0 puts a label token before the time token (two extras).  Blocks are
 unrolled; `utils/weights.py::uvit_state_dict` unstacks the JAX package's
-scanned layout.  The JAX stage split for pipeline parallelism and
-`token_sharding` belong to the distributed slice.
+scanned layout.  `sp`, a sequence-parallel context (`parallel/mesh.py`),
+shards the token stream after the embeddings and gathers it before the
+head, with `attn_impl='ring'`, as JAX's `token_sharding` constrains the
+tokens at every block boundary (`models/uvit.py:130-190`).  The JAX stage
+split for pipeline parallelism belongs to a later distributed slice.
 """
 from __future__ import annotations
 
@@ -53,18 +56,20 @@ class UViT(nn.Module):
         attn_impl: str = "infer",
         gelu_approx: bool = False,
         remat_policy: Optional[str] = "save_attn",
+        sp=None,
     ):
         super().__init__()
         self.patch_size = patch_size
         self.in_chans = in_chans
         self.num_classes = num_classes
         self.extras = 2 if num_classes > 0 else 1
+        self.sp = sp
         num_patches = (img_size // patch_size) ** 2
 
         def block(skip_on=False):
             return Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
                          skip=skip_on, attn_impl=attn_impl, gelu_approx=gelu_approx,
-                         use_checkpoint=use_checkpoint, remat_policy=remat_policy)
+                         use_checkpoint=use_checkpoint, remat_policy=remat_policy, sp=sp)
 
         half = depth // 2
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
@@ -96,6 +101,9 @@ class UViT(nn.Module):
                 raise ValueError("class-conditional UViT: labels y are required")
             x = torch.cat([self.label_emb(y)[:, None, :], x], dim=1)
         x = x + self.pos_embed
+        if self.sp is not None:  # this rank's token shard through the blocks
+            self.sp.check_tokens(x.shape[1], "UViT tokens")
+            x = self.sp.shard(x)
 
         skips = []
         for blk in self.in_blocks:
@@ -105,6 +113,8 @@ class UViT(nn.Module):
         for blk in self.out_blocks:
             x = blk(x, skips.pop())
 
+        if self.sp is not None:
+            x = self.sp.gather(x)
         x = self.decoder_pred(self.norm(x))
         assert x.shape[1] == self.extras + l
         x = unpatchify(x[:, self.extras:], self.in_chans)

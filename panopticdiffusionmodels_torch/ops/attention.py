@@ -6,7 +6,10 @@ inference path goes to the hand-written Hopper forward kernel; the training
 path (`'auto'`) is a `torch.autograd.Function` whose forward is that kernel
 (with the log-sum-exp saved) and whose backward is the Hopper backward
 kernel (`ops/kernels`), as the JAX package's custom VJP pairs
-`fused_attention_qkv` with `fused_attention_qkv_vjp`.  `'ring'` is the
+`fused_attention_qkv` with `fused_attention_qkv_vjp`.  `'pallas_recompute'`
+is the JAX package's other training pair: the forward kernel without lse,
+saving only qkv, and a backward that re-differentiates the plain attention
+in f32.  `'ring'` is the
 sequence-parallel flavour (`ops/ring_attention.py`, one `attention_hop`
 kernel launch per hop), given the sp context of `parallel/mesh.py`.
 `multi_head_attention` is the (B, H, L, D) entry: the plain path, or the
@@ -27,12 +30,6 @@ from .kernels.fused_qkv_attention import (
 )
 from .ring_attention import ring_attention_local
 
-_LATER = {
-    # JAX's A/B handle (kernel forward + XLA-recompute backward), picked there
-    # only when the backward misses the VMEM budget; on the card its backward
-    # would be the plain version on a CUDA path.
-    "pallas_recompute": "a later slice (kernel forward + recompute backward)",
-}
 log = logging.getLogger(__name__)
 
 
@@ -56,6 +53,30 @@ class QKVAttention(torch.autograd.Function):
         return dqkv, None, None
 
 
+class QKVAttentionRecompute(torch.autograd.Function):
+    """Kernel forward without lse that saves only qkv; the backward
+    re-differentiates `attention_qkv_plain` in f32 (JAX `_qkv_attn_trainable`
+    with bwd='xla_recompute', `ops/attention.py:55-99`).  JAX takes it where
+    the backward kernel misses the VMEM budget; here it is a chosen pair, not
+    a fallback.  On CPU tensors the forward is the plain version."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads: int, scale: float):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.scale = heads, scale
+        return fused_attention_qkv(qkv, heads, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().float().requires_grad_()
+            out = attention_qkv_plain(x, ctx.heads, ctx.scale)
+            (dqkv,) = torch.autograd.grad(out, x, g.float())
+        return dqkv.to(qkv.dtype), None, None
+
+
 def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = None,
                   impl: str = "infer", sp=None) -> torch.Tensor:
     """Attention from packed qkv; returns (B, L, C) with heads concatenated.
@@ -71,6 +92,8 @@ def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = Non
                               here 'auto' (the kernels, plain on CPU);
       'auto' / 'pallas_vjp' — trainable: the forward kernel with lse and the
                               backward kernel (their plain versions on CPU);
+      'pallas_recompute'    — trainable: the forward kernel without lse and
+                              the plain f32 recompute backward;
       'infer' / 'kernel'    — the forward kernel only (its plain version for
                               CPU tensors); raises on a CUDA tensor that needs
                               a gradient;
@@ -92,9 +115,8 @@ def attention_qkv(qkv: torch.Tensor, heads: int, *, scale: Optional[float] = Non
         return fused_attention_qkv(qkv, heads, scale)
     if impl in ("auto", "pallas_vjp"):
         return QKVAttention.apply(qkv, heads, scale)
-    if impl in _LATER:
-        raise NotImplementedError(
-            f"attention_qkv impl={impl!r} is not ported yet: it comes with {_LATER[impl]}")
+    if impl == "pallas_recompute":
+        return QKVAttentionRecompute.apply(qkv, heads, scale)
     raise ValueError(f"unknown attention impl: {impl!r}")
 
 

@@ -1,3 +1,3 @@
-from .mesh import InProcessSP, ProcessGroupSP, SequenceParallel, from_mesh
+from .mesh import DataParallel, InProcessSP, ProcessGroupSP, SequenceParallel, from_mesh
 
-__all__ = ["InProcessSP", "ProcessGroupSP", "SequenceParallel", "from_mesh"]
+__all__ = ["DataParallel", "InProcessSP", "ProcessGroupSP", "SequenceParallel", "from_mesh"]

@@ -1,37 +1,48 @@
-"""Sequence parallelism over a mesh axis `sp`.
+"""The layouts of a training run over processes: data parallelism, or
+sequence parallelism over a mesh axis `sp`.
 
-Port of the sequence-parallel part of
-`panopticdiffusionmodels_tpu/parallel/mesh.py`.  There, the token dim of
-every activation is sharded over the mesh axis 'sp' by sharding annotations
-and the partitioner inserts the collectives.  Here a context object says
-where the shards live and moves them explicitly:
+Port of `panopticdiffusionmodels_tpu/parallel/mesh.py`.  There, the mesh's
+axes shard every array by annotation and the partitioner inserts the
+collectives.  Here `from_mesh` returns a context for the world it finds:
 
-  * `shard(x)`  (B, L, C) of all tokens -> this rank's token shard;
-  * `gather(x)` the inverse, every rank gets all tokens;
-  * `rotate(kv)` one step of the ring: rank i's tensor moves to rank i+1;
-  * `sources(hop)` which shard's keys each local row holds after `hop`
-    rotations (the ring's `nvalid` masking needs it);
-  * `all_reduce_grads(params)` sums the gradients over the sp ranks.
+  * None: one process and no process group, nothing to share;
+  * `DataParallel` (JAX `make_mesh` with dp = -1 over every process,
+    `process_batch_slice`, `local_batch_size`): each process holds a replica
+    of the model and loads its contiguous rows of the global batch; the
+    trainer wraps the model in `DistributedDataParallel`;
+  * a `SequenceParallel` context, which says where the token shards live and
+    moves them explicitly:
 
-Two implementations, chosen by `mesh.sp_mode` and never inferred:
+      - `shard(x)`  (B, L, C) of all tokens -> this rank's token shard;
+      - `gather(x)` the inverse, every rank gets all tokens;
+      - `rotate(kv)` one step of the ring: rank i's tensor moves to rank i+1;
+      - `sources(hop)` which shard's keys each local row holds after `hop`
+        rotations (the ring's `nvalid` masking needs it);
+      - `all_reduce_grads(params)` sums the gradients over the sp ranks.
 
-  * `ProcessGroupSP` ('process_group'): one process per rank under
-    `torchrun`, over `torch.distributed` (NCCL on cards, gloo on the CPU).
-    Each process holds (B, L/sp, C).  `rotate` is a `batch_isend_irecv` whose
-    backward rotates the other way (the transpose of JAX's `ppermute`);
-    `gather` is an all-gather whose backward is a reduce-scatter.
-  * `InProcessSP` ('in_process'): every shard in one process on one device,
-    folded into the batch: (B, L, C) -> (sp*B, L/sp, C), shard s of batch row
-    b at row s*B + b.  `rotate` is a `torch.roll` over the shard axis and
-    `gather` the inverse reshape; autograd sums the gradients of the shards,
-    so `all_reduce_grads` has nothing to do.  This is the port's counterpart
-    of JAX's virtual-device mesh, and how one card runs the ring.
+    Two implementations, chosen by `mesh.sp_mode` and never inferred:
 
-Only sp is ported: dp, fsdp, tp and pp > 1 come with the distributed slice.
+      - `ProcessGroupSP` ('process_group'): one process per rank under
+        `torchrun`, over `torch.distributed` (NCCL on cards, gloo on the
+        CPU).  Each process holds (B, L/sp, C).  `rotate` is a
+        `batch_isend_irecv` whose backward rotates the other way (the
+        transpose of JAX's `ppermute`); `gather` is an all-gather whose
+        backward is a reduce-scatter.
+      - `InProcessSP` ('in_process'): every shard in one process on one
+        device, folded into the batch: (B, L, C) -> (sp*B, L/sp, C), shard s
+        of batch row b at row s*B + b.  `rotate` is a `torch.roll` over the
+        shard axis and `gather` the inverse reshape; autograd sums the
+        gradients of the shards, so `all_reduce_grads` has nothing to do.
+        This is the port's counterpart of JAX's virtual-device mesh, and how
+        one card runs the ring.
+
+Every context carries `rank`, `world_size` and `is_main` (rank 0, the one
+process that writes).  fsdp, tp, pp > 1, and dp beside sp, raise: they come
+with ROADMAP Queue 1 entry 4.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -53,6 +64,10 @@ class SequenceParallel:
         self.sp = sp
         self.rank = rank
         self._nvalid: Dict[tuple, torch.Tensor] = {}
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
 
     def sources(self, hop: int) -> List[int]:
         """The source shard of the keys each local shard holds after `hop`
@@ -76,8 +91,8 @@ class SequenceParallel:
         if n % self.sp:
             raise NotImplementedError(
                 f"{what}: {n} tokens do not divide sp={self.sp}; padding a model's token "
-                "streams comes with a later item of the distributed slice (ROADMAP Queue 1 "
-                "item 16); ops.ring_attention.ring_attention_qkv pads on its own")
+                "streams comes with a later distributed slice (ROADMAP Queue 1 entry 4, "
+                "north-star item 16); ops.ring_attention.ring_attention_qkv pads on its own")
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -180,6 +195,10 @@ class ProcessGroupSP(SequenceParallel):
                 f"initialised with {sp} processes (run under torchrun "
                 f"--nproc_per_node={sp}); on one device set mesh.sp_mode='in_process'")
         world = dist.get_world_size()
+        if world > sp:
+            raise NotImplementedError(_LATER.format(
+                f"mesh.sp={sp} with sp_mode='process_group' over {world} processes (data "
+                "parallelism beside sp)"))
         if world != sp:
             raise ValueError(f"mesh.sp={sp} with sp_mode='process_group' needs a world of "
                              f"{sp} processes, got {world}")
@@ -214,27 +233,66 @@ class ProcessGroupSP(SequenceParallel):
             offset += g.numel()
 
 
-def from_mesh(mesh) -> Optional[SequenceParallel]:
-    """The sequence-parallel context of a config's `mesh` (None at sp = 1).
+class DataParallel:
+    """Data parallelism over the processes of the default group, JAX's
+    dp = -1: every process holds a replica of the model and loads the
+    contiguous rows `process_batch_slice(global_batch)` of each global
+    batch (JAX `parallel/mesh.py::process_batch_slice` for a pure data
+    layout)."""
 
-    Raises for any other axis > 1 beside sp, for an unknown `sp_mode`, and
-    when the number of processes is neither 1 (in_process) nor sp
-    (process_group)."""
+    def __init__(self, world_size: int, rank: int):
+        self.world_size = world_size
+        self.rank = rank
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def local_batch_size(self, global_batch: int) -> int:
+        if global_batch % self.world_size:
+            raise ValueError(f"global batch {global_batch} does not divide into "
+                             f"{self.world_size} processes")
+        return global_batch // self.world_size
+
+    def process_batch_slice(self, global_batch: int) -> slice:
+        per = self.local_batch_size(global_batch)
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+_LATER = "{}: comes with a later distributed slice (ROADMAP Queue 1 entry 4)"
+
+
+def from_mesh(mesh) -> Union[None, DataParallel, SequenceParallel]:
+    """The layout of a config's `mesh` for the world this process is in:
+    None (one process and no process group, sp = 1), a `DataParallel`
+    (sp = 1, dp = -1 or dp = world, over the initialised default group, of
+    one process too) or a `SequenceParallel` context (sp > 1, dp at -1 or 1).
+
+    Raises `NotImplementedError` for what the port cannot run yet (fsdp, tp
+    or pp > 1; dp beside sp; an explicit dp other than the world; more
+    processes than sp under 'process_group'), `ValueError` for an unknown
+    `sp_mode` and when the number of processes is neither 1 (in_process)
+    nor sp (process_group)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    others = {k: int(mesh.get(k, 1)) for k in ("fsdp", "tp", "pp")}
+    if any(v != 1 for v in others.values()):
+        raise NotImplementedError(_LATER.format(f"mesh {dict(mesh)}: fsdp, tp or pp > 1"))
     sp = int(mesh.get("sp", 1))
-    if sp == 1:
-        return None
-    others = {k: mesh.get(k, 1) for k in ("dp", "fsdp", "tp", "pp")}
-    if others["dp"] not in (-1, 1) or any(others[k] != 1 for k in ("fsdp", "tp", "pp")):
-        raise NotImplementedError(
-            f"mesh {dict(mesh)}: sp > 1 together with dp, fsdp, tp or pp > 1 comes with the "
-            "distributed slice (ROADMAP Queue 1 item 16); this one runs sp alone")
-    mode = mesh.get("sp_mode", "process_group")
-    if mode not in SP_MODES:
-        raise ValueError(f"mesh.sp_mode={mode!r}: one of {SP_MODES}")
-    if mode == "in_process":
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if world != 1:
-            raise ValueError(f"mesh.sp_mode='in_process' runs every shard in one process, but "
-                             f"{world} processes were started; use sp_mode='process_group'")
-        return InProcessSP(sp)
-    return ProcessGroupSP(sp)
+    dp = int(mesh.get("dp", -1))
+    if sp > 1:
+        if dp not in (-1, 1):
+            raise NotImplementedError(_LATER.format(f"mesh {dict(mesh)}: dp beside sp > 1"))
+        mode = mesh.get("sp_mode", "process_group")
+        if mode not in SP_MODES:
+            raise ValueError(f"mesh.sp_mode={mode!r}: one of {SP_MODES}")
+        if mode == "in_process":
+            if world != 1:
+                raise ValueError(f"mesh.sp_mode='in_process' runs every shard in one process, "
+                                 f"but {world} processes were started; use "
+                                 "sp_mode='process_group'")
+            return InProcessSP(sp)
+        return ProcessGroupSP(sp)
+    if dp != -1 and dp != world:
+        raise NotImplementedError(_LATER.format(
+            f"mesh.dp={dp} over {world} processes (dp = -1 takes every process)"))
+    return DataParallel(world, dist.get_rank()) if dist.is_initialized() else None

@@ -1,4 +1,4 @@
-"""Train state: f32 parameters, their EMA and AdamW, with a frozen subset.
+"""Train state: f32 parameters, their EMA and AdamW or Adam, with a frozen subset.
 
 Port of `panopticdiffusionmodels_tpu/train/state.py`.  The JAX state is one
 pytree updated by a jitted step; here the model's own parameters are the
@@ -9,8 +9,10 @@ parameter, frozen ones too, as the JAX `tree.map` does), and
 moments, eps outside the square root, decoupled weight decay scaled by the
 learning rate.  The learning rate of update k (k = 0, 1, ...) is the
 schedule at count k, as optax evaluates it, so the first update's warm-up
-lr is 0.  Frozen parameters (the pretrained image stream) are left out of
-the optimizer, which the JAX `multi_transform` + `set_to_zero` amounts to.
+lr is 0.  `optimizer='adam'` is `torch.optim.Adam` for optax `adam` (no
+weight decay; the same m_hat / (sqrt(v_hat) + eps)).  Frozen parameters
+(the pretrained image stream) are left out of the optimizer, which the JAX
+`multi_transform` + `set_to_zero` amounts to.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ class TrainState:
 
     def __init__(self, model: torch.nn.Module, lr_schedule: Callable[[int], float],
                  betas: Sequence[float] = (0.9, 0.999), weight_decay: float = 0.0,
-                 eps: float = 1e-8, frozen: Iterable[str] = ()):
+                 eps: float = 1e-8, frozen: Iterable[str] = (), optimizer: str = "adamw"):
         self.step = 0
         self.params: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
         self.frozen = set(frozen)
@@ -69,8 +71,13 @@ class TrainState:
             raise ValueError(f"frozen names not in the model: {sorted(unknown)[:5]}")
         self.lr_schedule = lr_schedule
         trainable = [p for n, p in self.params.items() if n not in self.frozen]
-        self.optimizer = torch.optim.AdamW(
-            trainable, lr=0.0, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+        if optimizer == "adamw":
+            self.optimizer = torch.optim.AdamW(
+                trainable, lr=0.0, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+        elif optimizer == "adam":  # optax.adam takes no weight decay
+            self.optimizer = torch.optim.Adam(trainable, lr=0.0, betas=tuple(betas), eps=eps)
+        else:
+            raise NotImplementedError(f"optimizer {optimizer!r}: one of 'adamw', 'adam'")
         self.ema: Dict[str, torch.Tensor] = {n: p.detach().clone()
                                              for n, p in self.params.items()}
 
@@ -86,10 +93,10 @@ class TrainState:
         self.step += 1
 
     def state_dict(self) -> dict:
-        """{step, params, ema_params, opt_state} on the host."""
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
-        return {"step": self.step, "params": cpu(self.params), "ema_params": cpu(self.ema),
-                "opt_state": self.optimizer.state_dict()}
+        """{step, params, ema_params, opt_state}: the live tensors, not
+        copies (`checkpoint.save_checkpoint` copies them to the host)."""
+        return {"step": self.step, "params": {k: v.detach() for k, v in self.params.items()},
+                "ema_params": self.ema, "opt_state": self.optimizer.state_dict()}
 
     def load_state_dict(self, payload: dict) -> None:
         with torch.no_grad():

@@ -12,7 +12,9 @@ images (`pixel_sde`, unconditional or class-conditional, reference
 `train.py`) or on latent moments (`latent_sde`, reference `train_ldm.py`):
 
   * the model is built with `attn_impl='auto'` (the attention kernels'
-    forward and backward on the card) and the config's `use_checkpoint` /
+    forward and backward on the card) unless the config sets
+    `nnet.attn_impl` (e.g. 'pallas_recompute': the forward kernel and a
+    plain f32 recompute backward), and the config's `use_checkpoint` /
     `remat_policy`; its f32 parameters are the master weights, and
     `compute_dtype='bfloat16'` runs the forward and backward under
     `torch.autocast` (GEMMs in bf16; LayerNorm, softmax and the loss in f32);
@@ -32,16 +34,28 @@ images (`pixel_sde`, unconditional or class-conditional, reference
   * `build_sample_fn` samples with the EMA weights through
     `serving.GenerationPipeline.sample` (kernel 1, no gradient), decoding
     with the config's VAE when its file exists;
+  * the layout is `parallel.mesh.from_mesh`'s for the world it finds.  The
+    default mesh (dp = -1) over several processes (`torchrun`) trains data
+    parallel, as JAX's dp = -1 does over every process: the model is
+    wrapped in `DistributedDataParallel`, each process loads its rows of the
+    GLOBAL batch `train.batch_size` and keeps its rows of the global batch's
+    draws, the gradient all-reduce averages the processes' gradients (every
+    micro-batch but the last under `no_sync()`), and the losses are averaged
+    over the processes, so a step computes what one process computes on the
+    global batch;
   * `mesh.sp > 1` (the other axes at 1) trains sequence-parallel, as the
     JAX trainer does: the model's attention becomes the ring
-    (`attn_impl='ring'`) over the context `parallel.mesh.from_mesh` builds.
+    (`attn_impl='ring'`) over the layout's sp context.
     Every sp rank reads the same batch and draws the same noise; under
     `sp_mode='process_group'` each of the sp processes computes the whole
     loss after the model's gather, so the loss is scaled by 1/sp before the
     backward (whose gather transposes to a reduce-scatter) and every
     gradient, frozen ones too, is summed over the ranks before the norm and
-    AdamW: the step equals the unsharded one.  Only rank 0 writes
-    checkpoints and metrics.
+    AdamW: the step equals the unsharded one;
+  * under either, only rank 0 makes the directories, writes `metrics.jsonl`
+    and checkpoints and runs the callbacks; the other ranks wait at a
+    barrier after a callback, and every rank resumes from the same
+    checkpoint.
 
 Batches are channel-last numpy arrays as the JAX package's (moments
 (B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1); or moments and
@@ -58,6 +72,7 @@ run would have.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -67,9 +82,11 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import Loader, get_dataset, prefetch_to_device
 from ..diffusion.schedule import (
+    MASK_NOISE_SCALE,
     Schedule,
     l_simple,
     l_simple_panoptic,
@@ -80,7 +97,7 @@ from ..diffusion.sde import l_simple as l_simple_continuous
 from ..models import get_nnet
 from ..models.vae import get_model as get_vae
 from ..models.vae import sample_from_moments
-from ..parallel.mesh import from_mesh
+from ..parallel.mesh import DataParallel, SequenceParallel, from_mesh
 from ..utils.weights import load_nnet_state_dict, load_torch_state_dict
 from . import checkpoint as ckpt_lib
 from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
@@ -88,6 +105,20 @@ from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
 log = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+TASKS = ("pixel_sde", "latent_sde", "latent_discrete", "t2i_discrete")
+
+
+def infer_task(config) -> str:
+    """The task of a config that does not set `config.task` (every zoo
+    config does), as JAX `infer_task`: the t2i models train t2i_discrete;
+    a latent config is refused rather than guessed, since latent_discrete
+    and latent_sde read the same fields; anything else is pixel_sde."""
+    if config.nnet.name in ("uvit_t2i", "unet_t2i"):
+        return "t2i_discrete"
+    if "autoencoder" in config and "z_shape" in config:
+        raise ValueError("ambiguous latent config: set config.task to 'latent_discrete' "
+                         "or 'latent_sde' explicitly")
+    return "pixel_sde"
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -96,8 +127,7 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
 
 
-def _check_supported(config) -> None:
-    task = config.get("task", "")
+def _check_supported(config, task: str) -> None:
     if task == "t2i_discrete":
         if config.nnet.name not in ("uvit_t2i", "unet_t2i"):
             raise NotImplementedError(f"training nnet {config.nnet.name!r}: t2i_discrete "
@@ -106,9 +136,6 @@ def _check_supported(config) -> None:
             # JAX `Trainer.__init__` l.133-137: the UNet's conv / attention mix
             # has no single token axis to shard
             raise ValueError(f"mesh.sp>1 is not supported for nnet {config.nnet.name!r}")
-        if not config.nnet.get("enable_panoptic", True):
-            raise NotImplementedError("image-only t2i training (l_simple) comes with a later "
-                                      "slice")
     elif task in ("latent_discrete", "pixel_sde", "latent_sde"):
         mode = config.train.get("mode", "uncond" if task == "pixel_sde" else "cond")
         if config.nnet.name != "uvit":
@@ -124,37 +151,30 @@ def _check_supported(config) -> None:
             raise ValueError(f"{task} with train.mode={mode!r} needs a "
                              f"{'class-conditional' if mode == 'cond' else 'unconditional'} "
                              f"uvit, got num_classes={config.nnet.get('num_classes')}")
-        if config.get("mesh", {}).get("sp", 1) != 1:
-            raise NotImplementedError("sequence-parallel uvit training comes with the "
-                                      "distributed slice")
     else:
         raise NotImplementedError(
             f"task {task!r} is not ported: the port trains t2i_discrete, latent_discrete, "
             "pixel_sde and latent_sde")
-    mesh = config.get("mesh", {})
-    dp = mesh.get("dp", -1)
-    if dp not in (-1, 1) or any(mesh.get(k, 1) != 1 for k in ("fsdp", "tp")):
-        raise NotImplementedError(
-            f"mesh {dict(mesh)}: data / tensor parallel training comes with the "
-            "distributed slice; this one trains on one device or sequence-parallel (sp)")
-    if mesh.get("pp", 1) != 1:
-        raise NotImplementedError("mesh.pp > 1 (the boomerang pipeline) comes with the "
-                                  "distributed slice")
-    if config.optimizer.name != "adamw":
-        raise NotImplementedError(f"optimizer {config.optimizer.name!r}: the configs of this "
-                                  "slice train with adamw")
+    if config.optimizer.name not in ("adamw", "adam"):
+        raise NotImplementedError(f"optimizer {config.optimizer.name!r}: one of 'adamw', "
+                                  "'adam'")
 
 
 class Trainer:
     def __init__(self, config, workdir: Optional[str] = None, device="cuda"):
-        _check_supported(config)
+        self.task = config.get("task", None) or infer_task(config)
+        _check_supported(config, self.task)
         self.config = config
-        self.task = config.task
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer(device='cuda'): no CUDA device; pass device='cpu'")
-        self.sp = from_mesh(config.get("mesh", {}))
-        self.is_main = self.sp is None or self.sp.rank == 0
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("Trainer(device='cuda'): no CUDA device; pass device='cpu'")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        layout = from_mesh(config.get("mesh", {}))
+        self.sp = layout if isinstance(layout, SequenceParallel) else None
+        self.dp = layout if isinstance(layout, DataParallel) else None
+        self.is_main = layout is None or layout.is_main
         self.workdir = workdir or config.get("workdir", "") or "results/run"
         self.ckpt_root = os.path.join(self.workdir, "ckpts")
         if self.is_main:
@@ -167,7 +187,7 @@ class Trainer:
         nnet_kwargs.pop("name")
         self.is_unet = config.nnet.name == "unet_t2i"
         if not self.is_unet:  # the UNet's attention is the plain one, as in JAX
-            nnet_kwargs["attn_impl"] = "auto"
+            nnet_kwargs.setdefault("attn_impl", "auto")  # or the config's, e.g. pallas_recompute
         if self.sp is not None:
             nnet_kwargs.update(attn_impl="ring", sp=self.sp)
             if self.sp.mode == "in_process":
@@ -200,7 +220,16 @@ class Trainer:
             total_steps=config.train.n_steps)
         self.state = TrainState(
             self.nnet, lr_sched, betas=config.optimizer.betas,
-            weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen)
+            weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen,
+            optimizer=config.optimizer.name)
+        # What the loss calls: the network, or its data-parallel wrapper, whose
+        # backward all-reduces (averages) the gradients bucket by bucket.
+        self.model = self.nnet
+        if self.dp is not None:
+            self.model = torch.nn.parallel.DistributedDataParallel(
+                self.nnet, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                # the mask head takes no gradient when the true mask is fed in
+                find_unused_parameters=bool(config.nnet.get("use_ground_truth", False)))
         if self.task in ("pixel_sde", "latent_sde"):
             self.sde = VPSDE()
         else:
@@ -226,47 +255,47 @@ class Trainer:
         def fn(xn, t, mask_token=None, use_ground_truth=False):
             with torch.autocast(self.device.type, dtype=self.compute_dtype,
                                 enabled=self.compute_dtype != torch.float32):
-                eps, mask = self.nnet(xn.permute(0, 3, 1, 2), t, context,
+                eps, mask = self.model(xn.permute(0, 3, 1, 2), t, context,
                                       mask_token=mask_token.permute(0, 3, 1, 2),
                                       use_ground_truth=use_ground_truth)
             return eps.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
 
         return fn
 
-    def _label_nnet_fn(self, y=None):
+    def _cond_nnet_fn(self, y=None):
         """(xn, t) on channel-last tensors -> the prediction channel-last,
-        through the NCHW uvit with labels y (None: unconditional)."""
+        through the NCHW network with the labels or the context y (None:
+        unconditional)."""
 
         def fn(xn, t):
             with torch.autocast(self.device.type, dtype=self.compute_dtype,
                                 enabled=self.compute_dtype != torch.float32):
-                eps = self.nnet(xn.permute(0, 3, 1, 2), t, y)
+                eps = self.model(xn.permute(0, 3, 1, 2), t, y)
             return eps.permute(0, 2, 3, 1)
 
         return fn
 
-    def _loss(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None):
+    def _loss(self, batch, noise: Dict[str, torch.Tensor]):
         """(scalar loss, metrics) of one (micro-)batch: JAX `Trainer._loss`,
-        t2i_discrete and latent_discrete branches (the SDE tasks in
-        `_sde_loss`)."""
-        noise = noise or {}
+        t2i_discrete (panoptic, or image-only `l_simple` on the context) and
+        latent_discrete branches (the SDE tasks in `_sde_loss`).  A draw
+        missing from `noise` is taken from the generator."""
         if self.task in ("pixel_sde", "latent_sde"):
             return self._sde_loss(batch, noise)
-        moments = batch[0].float()
-        z = sample_from_moments(moments, self.config.autoencoder.scale_factor,
-                                noise=noise.get("z"), generator=self.generator)
-        if self.task == "latent_discrete":
-            loss = l_simple(z, self._label_nnet_fn(batch[1]), self.schedule,
-                            n=noise.get("n"), eps=noise.get("eps"), generator=self.generator)
+        g = self.generator
+        z = sample_from_moments(batch[0].float(), self.config.autoencoder.scale_factor,
+                                noise=noise.get("z"), generator=g)
+        if self.task == "latent_discrete" or not self.config.nnet.get("enable_panoptic", True):
+            # the labels, or image-only t2i's context (JAX l.400-406): no mask token
+            loss = l_simple(z, self._cond_nnet_fn(batch[1]), self.schedule, n=noise.get("n"),
+                            eps=noise.get("eps"), generator=g)
             return loss.mean(), {"loss": loss.mean().detach()}
-        context = batch[1]
         use_gt = bool(self.config.nnet.get("use_ground_truth", False))
         loss_eps, loss_mask = l_simple_panoptic(
-            z, self._nnet_fn(context), self.schedule, batch[2],
+            z, self._nnet_fn(batch[1]), self.schedule, batch[2],
             mask_bits=self.config.nnet.mask_bits, use_ground_truth=use_gt,
             use_twophases=bool(self.config.get("use_twophases", False)),
-            n=noise.get("n"), eps=noise.get("eps"), eps_m=noise.get("eps_m"),
-            generator=self.generator)
+            n=noise.get("n"), eps=noise.get("eps"), eps_m=noise.get("eps_m"), generator=g)
         metrics = {"loss": loss_eps.mean().detach(), "loss_mask": loss_mask.mean().detach()}
         if use_gt:
             return loss_eps.mean(), metrics
@@ -282,7 +311,7 @@ class Trainer:
         if self.task == "latent_sde":
             x = sample_from_moments(x, self.config.autoencoder.scale_factor,
                                     noise=noise.get("z"), generator=self.generator)
-        sm = ScoreModel(self._label_nnet_fn(y), self.config.pred, self.sde)
+        sm = ScoreModel(self._cond_nnet_fn(y), self.config.pred, self.sde)
         loss = l_simple_continuous(sm, x, pred=self.config.pred, t=noise.get("t"),
                                    eps=noise.get("eps"), generator=self.generator)
         return loss.mean(), {"loss": loss.mean().detach()}
@@ -296,34 +325,75 @@ class Trainer:
                      if v is not None}
         return batch, noise
 
+    def _draw_noise(self, batch) -> Dict[str, torch.Tensor]:
+        """The step's random draws for this process's rows, from the
+        generator: the draws `_loss` would make for one call on the whole
+        global batch, in its order and shapes (`z` from the moments; `n`, or
+        the continuous `t`; `eps`; the mask's `eps_m`).  A data-parallel
+        process draws the global batch's and keeps its rows, as JAX draws
+        one key for the global batch, so the step does not depend on the
+        number of processes."""
+        g, dev = self.generator, self.device
+        f32 = dict(generator=g, dtype=torch.float32, device=dev)
+        b, rows = batch[0].shape[0], slice(None)
+        if self.dp is not None:
+            b *= self.dp.world_size
+            rows = self.dp.process_batch_slice(b)
+        shape = (b, *batch[0].shape[1:])
+        noise = {}
+        if self.task != "pixel_sde":  # the draw from the (mean, logvar) moments
+            shape = (*shape[:-1], shape[-1] // 2)
+            noise["z"] = torch.randn(shape, **f32)
+        if self.task in ("pixel_sde", "latent_sde"):
+            noise["t"] = torch.rand((b,), **f32)
+        else:
+            noise["n"] = torch.randint(1, self.schedule.N + 1, (b,), generator=g, device=dev)
+        noise["eps"] = torch.randn(shape, **f32)
+        if self.task == "t2i_discrete" and self.config.nnet.get("enable_panoptic", True):
+            ids = batch[2].shape  # (B, H, W, 1) integer maps -> mask_bits analog bits
+            bits = (b, *ids[1:-1], ids[-1] * self.config.nnet.mask_bits)
+            noise["eps_m"] = MASK_NOISE_SCALE * torch.randn(bits, **f32)
+        return {k: v[rows] for k, v in noise.items()}
+
     def loss_and_grads(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None):
-        """Forward and backward of one step; leaves the gradient in each
-        parameter's .grad and returns the metrics (device tensors) with the
-        global gradient norm over every parameter, frozen ones too."""
+        """Forward and backward of one step on this process's rows `batch`;
+        leaves the gradient in each parameter's .grad and returns the
+        metrics (device tensors, averaged over a data-parallel run's
+        processes) with the global gradient norm over every parameter,
+        frozen ones too.  `noise` holds the draws for these rows (one
+        missing is taken from the generator); by default `_draw_noise` takes
+        them all from the generator, reseeded from (seed, step)."""
         batch, noise = self._as_device(batch, noise)
         self.generator.manual_seed(step_seed(self.config.seed, self.state.step + 1))
+        if noise is None:
+            noise = self._draw_noise(batch)
         for p in self.state.params.values():
             p.grad = None
         accum = int(self.config.train.get("grad_accum", 1))
         # Each of `world` processes computes the whole loss (sp of them under
         # sp_mode='process_group', else one); their gradients are summed below.
+        # A data-parallel process computes its rows' loss, and the gradient
+        # all-reduce of `DistributedDataParallel` averages over the processes.
         world = 1 if self.sp is None else self.sp.world_size
-        if accum <= 1:
-            loss, metrics = self._loss(batch, noise)
-            (loss / world).backward()
-        else:
-            # Micro-batches of B/accum, each with its slice of the draws; the
-            # gradient is the mean of theirs, the metrics the mean of theirs.
-            micro = [tuple(x.chunk(accum)) for x in batch]
-            parts = []
-            for i in range(accum):
-                mn = None if noise is None else {k: v.chunk(accum)[i] for k, v in noise.items()}
+        # Micro-batches of B/accum, each with its slice of the draws; the
+        # gradient is the mean of theirs, the metrics the mean of theirs.
+        micro = [tuple(x.chunk(accum)) for x in batch]
+        parts = []
+        for i in range(accum):
+            mn = {k: v.chunk(accum)[i] for k, v in noise.items()}
+            last = i == accum - 1
+            with contextlib.nullcontext() if self.dp is None or last else self.model.no_sync():
                 loss, m = self._loss(tuple(x[i] for x in micro), mn)
                 (loss / (accum * world)).backward()
-                parts.append(m)
-            metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
+            parts.append(m)
+        metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
         if self.sp is not None:
             self.sp.all_reduce_grads(self.state.params.values())
+        if self.dp is not None:
+            names = sorted(metrics)
+            mean = torch.stack([metrics[k] for k in names])
+            dist.all_reduce(mean)
+            metrics = dict(zip(names, mean / self.dp.world_size))
         grads = [p.grad for p in self.state.params.values() if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
@@ -425,9 +495,12 @@ class Trainer:
         cast_int = (np.uint8 if self.config.nnet.get("enable_panoptic", False)
                     and self.config.nnet.get("mask_bits", 8) <= 8
                     and cfgt.get("transfer_mask_uint8", True) else None)
+        procs = {} if self.dp is None else dict(process_index=self.dp.rank,
+                                                process_count=self.dp.world_size)
         loader = Loader(self.dataset.get_split("train", labeled=True),
                         batch_size=cfgt.batch_size,
-                        num_workers=self.config.get("num_workers", 8), seed=self.config.seed)
+                        num_workers=self.config.get("num_workers", 8), seed=self.config.seed,
+                        **procs)
         if start_step:
             loader.skip(start_step)
         return prefetch_to_device(iter(loader), self.device, cast_f32=cast_f32,
@@ -435,6 +508,11 @@ class Trainer:
 
     def resume(self) -> bool:
         return ckpt_lib.resume(self.ckpt_root, self.state)
+
+    def _barrier(self) -> None:
+        """Every process of a data-parallel run waits here for the others."""
+        if self.dp is not None:
+            dist.barrier()  # NCCL's on the device `cli.init_distributed` bound
 
     def fit(self, max_steps: Optional[int] = None, eval_callback: Optional[Callable] = None,
             vis_callback: Optional[Callable] = None):
@@ -445,7 +523,12 @@ class Trainer:
         `train.eval_interval` steps (sample grids) and eval_callback(trainer,
         step) every `train.save_interval` steps (FID), where it takes over the
         checkpoint (best-FID retention), as in JAX `fit` (l.783-845); both live
-        in `evaluation/runner.py`.  A sequence-parallel trainer cannot sample
+        in `evaluation/runner.py`.  The other processes of a data-parallel run
+        wait at a barrier after a callback (the process group's timeout,
+        `cli.DIST_TIMEOUT`, is long enough for a FID evaluation).  Without an
+        eval callback every `save_interval` step is checkpointed
+        asynchronously (`block=False`), and every write is on disk when `fit`
+        returns.  A sequence-parallel trainer cannot sample
         yet (`sample_pipeline`), so under `mesh.sp > 1` neither callback runs
         and every `save_interval` step is checkpointed."""
         config = self.config
@@ -479,13 +562,20 @@ class Trainer:
                 log.info(json.dumps(m))
                 with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
                     f.write(json.dumps(m) + "\n")
-            if not self.is_main:
-                continue
+            called = False
             if vis_callback is not None and eval_interval and step % eval_interval == 0:
-                vis_callback(self, step)
+                if self.is_main:
+                    vis_callback(self, step)
+                called = True
             if save_interval and step % save_interval == 0:
                 if eval_callback is not None:
-                    eval_callback(self, step)
-                else:
-                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state)
+                    if self.is_main:
+                        eval_callback(self, step)
+                    called = True
+                elif self.is_main:
+                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=False)
+            if called:
+                self._barrier()
+        ckpt_lib.wait_for_saves()
+        self._barrier()  # every rank returns with rank 0's checkpoints on disk
         return history

@@ -20,6 +20,12 @@ UNET_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "models.unet", "samplers.pndm", "utils.ldm_bridge", "configs.mscoco_unet",
     "configs.mscoco_unet_512", "configs.imagenet256_uvit_huge",
     "configs.imagenet512_uvit_huge")]
+# the modules of the data-parallel slice and the trainer's branches (the
+# multi-process loader, async checkpoints, Adam, every remat policy,
+# pallas_recompute, sp U-ViT), which the walk must reach
+DDP_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "parallel.mesh", "data.loader", "cli", "train.trainer", "train.checkpoint",
+    "train.state", "models.layers", "ops.attention", "models.uvit", "models.uvit_t2i")]
 # packages the port must not come to need: CLIP's tokenizer and weights are read
 # by its own code
 NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
@@ -36,6 +42,7 @@ print("MODULES:", sum(m.startswith(pkg.__name__) for m in sys.modules))
 print("PIXEL:", all(m in sys.modules for m in {PIXEL_MODULES!r}))
 print("EVAL:", all(m in sys.modules for m in {EVAL_MODULES!r}))
 print("UNET:", all(m in sys.modules for m in {UNET_MODULES!r}))
+print("DDP:", all(m in sys.modules for m in {DDP_MODULES!r}))
 print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
@@ -50,6 +57,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "PIXEL: True" in out.stdout, out.stdout
     assert "EVAL: True" in out.stdout, out.stdout
     assert "UNET: True" in out.stdout, out.stdout
+    assert "DDP: True" in out.stdout, out.stdout
     assert "LOADED: []" in out.stdout, out.stdout
 
 

@@ -16,70 +16,22 @@ JAX mask freezes, nothing of the UNet; `mesh.sp = 2` raises as in JAX.
 """
 import jax
 import jax.numpy as jnp
-import ml_collections
 import numpy as np
 import pytest
 import torch
 
-from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.diffusion.schedule import Schedule as JaxSchedule
-from panopticdiffusionmodels_tpu.diffusion.schedule import stable_diffusion_beta_schedule
-from panopticdiffusionmodels_tpu.models import get_nnet as jax_get_nnet
-from panopticdiffusionmodels_tpu.train.state import create_train_state, make_optimizer
-from panopticdiffusionmodels_tpu.train.state import make_lr_schedule as jax_lr_schedule
 from panopticdiffusionmodels_tpu.train.state import panoptic_image_stream_mask
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
-from panopticdiffusionmodels_torch.configs import get_config
-from panopticdiffusionmodels_torch.configs.base import d
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.ldm_bridge import convert_ldm_unet
 from panopticdiffusionmodels_torch.utils.weights import unet_state_dict
 from torch_port_train_common import assert_step_matches, batches, jax_draws, port_step
-from torch_port_unet_common import ldm_state_dict, open_gate, to_jax, unet_fields
+from torch_port_unet_common import ldm_state_dict, open_gate, to_jax
+from torch_port_unet_common import train_configs as configs
+from torch_port_unet_common import train_jax_trainer as jax_trainer
 
 torch.set_num_threads(4)
 
 STEPS = 3
-
-
-def configs(**extra):
-    """(port config, JAX config): synthetic_tiny with the tiny panoptic UNet."""
-    config = get_config("synthetic_tiny")
-    # channel_mult (2, 2): 64 channels at both levels.  GroupNorm-32 over 32
-    # channels is one channel a group, which cancels a conv bias exactly and
-    # leaves AdamW normalising rounding noise; two levels halve JAX's compile.
-    config.nnet = d(**unet_fields(channel_mult=[2, 2]))
-    config.sample.algorithm = "pndm"
-    config.use_unet = True
-    config.num_workers = 0
-    config.update(extra)
-    jconfig = jax_get_config("synthetic_tiny")
-    for key, value in config.items():
-        if key not in ("config_name", "mesh"):
-            jconfig[key] = ml_collections.ConfigDict(dict(value)) if isinstance(value, dict) \
-                else value
-    return config, jconfig
-
-
-def jax_trainer(jconfig, params):
-    """A JAX `Trainer` with what `_loss` / `_train_step_impl` read, its state
-    made from `params` as `__init__` makes it (no pretrained, no mesh)."""
-    jt = JaxTrainer.__new__(JaxTrainer)
-    jt.config, jt.task = jconfig, jconfig.task
-    kwargs = dict(jconfig.nnet)
-    kwargs.pop("use_ground_truth", None)
-    jt.nnet = jax_get_nnet(kwargs.pop("name"), dtype=jnp.float32, **kwargs)
-    jt._pipe_apply = None
-    jt.schedule = JaxSchedule(stable_diffusion_beta_schedule())
-    jt.rng = jax.random.PRNGKey(jconfig.seed)
-    lr = jax_lr_schedule(jconfig.optimizer.lr, jconfig.lr_scheduler.name,
-                         warmup_steps=jconfig.lr_scheduler.get("warmup_steps", -1),
-                         total_steps=jconfig.train.n_steps)
-    tx = make_optimizer("adamw", lr_schedule=lr, weight_decay=jconfig.optimizer.weight_decay,
-                        betas=tuple(jconfig.optimizer.betas))
-    jt.state = create_train_state(params, tx)
-    jt._train_step = jax.jit(jt._train_step_impl)
-    return jt
 
 
 def to_port(tree):

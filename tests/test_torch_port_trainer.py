@@ -123,8 +123,8 @@ def test_missing_pretrained_raises(tmp_path):
     ("task", "pixel_sde", "slice"),
     ("mesh.tp", 2, "distributed"),
     ("mesh.pp", 2, "distributed"),
-    ("nnet.remat_policy", "dots", "later PR"),
-    ("optimizer.name", "adam", "adamw"),
+    ("mesh.fsdp", 2, "Queue 1 entry 4"),
+    ("optimizer.name", "lamb", "adamw"),
 ])
 def test_later_slices_raise(tmp_path, field, value, match):
     config = tiny()

@@ -10,15 +10,28 @@ weights to the JAX module as a flax tree (`to_jax`, the inverse of
 of JAX's own `init` gives: a jitted JAX init of the UNet costs ~17 s on a
 CPU, its jitted apply ~4 s.  `ldm_state_dict` writes seeded weights in the
 CompVis-LDM UNet's key layout, restated here independently of both
-converters.
+converters.  `train_configs` / `train_jax_trainer` are the UNet training
+tests' (port config, JAX config) pair and a JAX `Trainer` built by
+`__new__` with what its step reads.
 """
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
+import ml_collections
 import numpy as np
 import torch
 
+from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
+from panopticdiffusionmodels_tpu.diffusion.schedule import Schedule as JaxSchedule
+from panopticdiffusionmodels_tpu.diffusion.schedule import stable_diffusion_beta_schedule
+from panopticdiffusionmodels_tpu.models import get_nnet as jax_get_nnet
 from panopticdiffusionmodels_tpu.models.unet import UNet2DCondition as JaxUNet
+from panopticdiffusionmodels_tpu.train.state import create_train_state, make_optimizer
+from panopticdiffusionmodels_tpu.train.state import make_lr_schedule as jax_lr_schedule
+from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
+from panopticdiffusionmodels_torch.configs import get_config
+from panopticdiffusionmodels_torch.configs.base import d
 from panopticdiffusionmodels_torch.models.unet import UNet2DCondition
 from panopticdiffusionmodels_torch.utils.weights import unet_state_dict
 
@@ -174,3 +187,43 @@ def ldm_state_dict(ch0, mult, nrb, in_ch=4, out_ch=4, ctx=16, seed=0):
     norm("out.0", c)
     conv("out.2", c, out_ch, 3)
     return sd
+
+
+def train_configs(**extra):
+    """(port config, JAX config): synthetic_tiny with the tiny panoptic UNet."""
+    config = get_config("synthetic_tiny")
+    # channel_mult (2, 2): 64 channels at both levels.  GroupNorm-32 over 32
+    # channels is one channel a group, which cancels a conv bias exactly and
+    # leaves AdamW normalising rounding noise; two levels halve JAX's compile.
+    config.nnet = d(**unet_fields(channel_mult=[2, 2]))
+    config.sample.algorithm = "pndm"
+    config.use_unet = True
+    config.num_workers = 0
+    config.update(extra)
+    jconfig = jax_get_config("synthetic_tiny")
+    for key, value in config.items():
+        if key not in ("config_name", "mesh"):
+            jconfig[key] = ml_collections.ConfigDict(dict(value)) if isinstance(value, dict) \
+                else value
+    return config, jconfig
+
+
+def train_jax_trainer(jconfig, params, optimizer: str = "adamw", frozen_mask=None):
+    """A JAX `Trainer` with what `_loss` / `_train_step_impl` read, its state
+    made from `params` as `__init__` makes it (no pretrained, no mesh)."""
+    jt = JaxTrainer.__new__(JaxTrainer)
+    jt.config, jt.task = jconfig, jconfig.task
+    kwargs = dict(jconfig.nnet)
+    kwargs.pop("use_ground_truth", None)
+    jt.nnet = jax_get_nnet(kwargs.pop("name"), dtype=jnp.float32, **kwargs)
+    jt._pipe_apply = None
+    jt.schedule = JaxSchedule(stable_diffusion_beta_schedule())
+    jt.rng = jax.random.PRNGKey(jconfig.seed)
+    lr = jax_lr_schedule(jconfig.optimizer.lr, jconfig.lr_scheduler.name,
+                         warmup_steps=jconfig.lr_scheduler.get("warmup_steps", -1),
+                         total_steps=jconfig.train.n_steps)
+    tx = make_optimizer(optimizer, lr_schedule=lr, weight_decay=jconfig.optimizer.weight_decay,
+                        betas=tuple(jconfig.optimizer.betas), frozen_mask=frozen_mask)
+    jt.state = create_train_state(params, tx)
+    jt._train_step = jax.jit(jt._train_step_impl)
+    return jt
