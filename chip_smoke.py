@@ -8,7 +8,9 @@ pixel_sde), sequence-parallel training, (B, H, L, D) attention and
 fused-LayerNorm A/B paths, evaluation (sampling, FID, the CLIP encoders) on
 one NVIDIA H100 and check their kernels; then data-parallel training over
 processes, every remat policy, `pallas_recompute`, image-only t2i training,
-Adam, sequence-parallel U-ViT training and asynchronous checkpoints.
+Adam, sequence-parallel U-ViT training and asynchronous checkpoints; then the
+data pipeline (MS-COCO feature extraction, training through the native C++
+loader, checkpoint conversion) and fully sharded data parallelism.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -246,7 +248,29 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      (params, EMA and two AdamW moments) with block=True and one with
      block=False while training goes on: the loop's stall, the write's
      duration, both files read back equal to the state at the call;
- 36. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 36. the data pipeline: (a) a synthetic COCO tree (128 JPEGs of 640 x 480,
+     5 captions each, panoptic PNGs of 6 segments, categories up to 200)
+     through `python -m panopticdiffusionmodels_torch.scripts.
+     extract_mscoco_feature --size 256` on the card with a seeded
+     full-width SD KL-VAE and a CLIP-L/14-shaped text encoder, then the
+     empty-context and prompt scripts: images/s and the VAE / CLIP / host
+     split, 2 images' moments and contexts against the CPU's (relative
+     deviation < 1e-3) and their seg maps equal; (b) mscoco_uvit_small at
+     batch 64, fine-tune mode, save_attn, from those features through the
+     native loader (input_pipeline 'native'), 3 + 20 steps with exactly
+     26 + 26 kernel calls a step, then blocks of 5 steps in turns with the
+     Python Loader, and the host's time to assemble a batch with each; (c)
+     a seeded reference-format .pth through `scripts/convert_checkpoint.py`:
+     `Trainer` resumes its `0.ckpt` strictly, parameters and EMA equal the
+     .pth bit for bit, one step through kernels 1 and 2;
+ 37. FSDP: two processes on the one card over gloo at mesh.fsdp = 2:
+     synthetic_tiny in f32, the ranks' gathered parameters and EMA after 3
+     steps against one process at the global batch of 16 (max absolute
+     difference < 1e-5); mscoco_uvit_small at the global batch of 64, 26 +
+     26 kernel calls a step in each rank, each rank's bytes of parameters,
+     gradients, moments and EMA against one process's (< 0.55), its step
+     time (gloo copies through the host; not judged);
+ 38. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -268,8 +292,12 @@ import torch.nn.functional as F
 from panopticdiffusionmodels_torch import cli
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.configs.base import d
+from panopticdiffusionmodels_torch.data import Loader
 from panopticdiffusionmodels_torch.data.datasets import CFGLabelDataset
+from panopticdiffusionmodels_torch.data.mscoco import MSCOCODatabase
+from panopticdiffusionmodels_torch.data.native_loader import NativeFeatureLoader
 from panopticdiffusionmodels_torch.evaluation import clip_score, fid, inception, runner, sampler_io
+from panopticdiffusionmodels_torch.evaluation.inception import no_tf32
 from panopticdiffusionmodels_torch.models import clip
 from panopticdiffusionmodels_torch.models import get_nnet
 from panopticdiffusionmodels_torch.models.layers import Attention, Block, with_gelu
@@ -281,11 +309,23 @@ from panopticdiffusionmodels_torch.ops.kernels import fused_ln_qkv_attention as 
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as fqa
 from panopticdiffusionmodels_torch.ops.kernels import ring_hop
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
-from panopticdiffusionmodels_torch.scripts import bench, bench_fused_ln
+from panopticdiffusionmodels_torch.parallel.sharding import full, local
+from panopticdiffusionmodels_torch.scripts import (
+    bench,
+    bench_fused_ln,
+    convert_checkpoint,
+    extract_empty_feature,
+    extract_mscoco_feature,
+    extract_test_prompt_feature,
+)
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 from panopticdiffusionmodels_torch.train.state import TrainState, make_lr_schedule
 from panopticdiffusionmodels_torch.train.trainer import Trainer
+from panopticdiffusionmodels_torch.utils.weights import (
+    load_torch_state_dict,
+    reference_nnet_state_dict,
+)
 
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -461,6 +501,19 @@ MID_BLOCKS, MID_BATCH = 17, 32
 # Sequence-parallel U-ViT-L/2 training (phase 35): latent_discrete at batch 64,
 # mesh.sp = 2 in process, 21 ring attentions of 2 hops a step; 10 timed steps.
 SP_UVIT_HOPS, SP_UVIT_TIMED = 2 * UVIT_L_BLOCKS, 10
+# The data pipeline (phases 36a-c): a synthetic COCO tree of 128 JPEGs of 640 x
+# 480 (and a val split of 8), 5 captions each and panoptic PNGs of 6 segments
+# on an 80-pixel grid;
+# COCO_CHECK images' features held card vs CPU; mscoco_uvit_small's steps on
+# the native loader and the Python Loader in turns (COCO_ROUNDS x 2 blocks of
+# COCO_BLOCK steps each), and the host's assembly of COCO_HOST_BATCHES batches.
+COCO_IMAGES, COCO_W, COCO_H, COCO_SEGMENTS, COCO_CHECK = 128, 640, 480, 6, 2
+COCO_VAL_IMAGES = 8
+COCO_BLOCK, COCO_ROUNDS, COCO_HOST_BATCHES = 5, 2, 20
+# FSDP over two gloo processes on the one card (phase 37): synthetic_tiny as
+# phase 31b's, in f32, then mscoco_uvit_small at the global batch of 64 for 2 +
+# FSDP_TIMED steps.
+FSDP_WORLD, FSDP_TIMED = 2, 5
 
 
 def zero_counts() -> None:
@@ -1525,21 +1578,26 @@ def phase_train_profile(trainer, step_s, tag):
                    f"train step (batch {trainer.config.train.batch_size})", step_s)
 
 
-def make_trainer(name, tmp, mesh=None, pretrained=True):
+def make_trainer(name, tmp, mesh=None, pretrained=True, features=None):
     """`Trainer` for a zoo config at full width and depth in fine-tune mode (a
     seeded reference-format .pth, so the image stream is frozen), or from the
-    seeded initialisation, on synthetic coco data at the config's shapes."""
+    seeded initialisation, on synthetic coco data at the config's shapes, or
+    on the config's own dataset read from the feature root `features`."""
     config = get_config(name)
     h, w, c = config.z_shape
     m = config.nnet.mask_size
-    config.dataset = d(name="synthetic", n=128, z_shape=(h, w, 2 * c),
-                       clip_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
-                       mask_size=m)
+    if features:
+        config.dataset.path = features
+    else:
+        config.dataset = d(name="synthetic", n=128, z_shape=(h, w, 2 * c),
+                           clip_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
+                           mask_size=m)
     config.train.log_interval = 5
     config.num_workers = 4
     config.mesh.update(mesh or {})
     config.pretrained = os.path.join(tmp, f"{name}.pth") if pretrained else ""
     if pretrained:
+        os.makedirs(tmp, exist_ok=True)
         write_pretrained(config.pretrained, config)
     return Trainer(config, os.path.join(tmp, f"run_{name}"), device="cuda")
 
@@ -2549,6 +2607,332 @@ def phase_async_checkpoint(trainer, tmp: str):
     return result
 
 
+def write_coco(root: str, split: str, n: int, seed: int) -> None:
+    """A synthetic MS-COCO split under `root`: n JPEGs of COCO_W x COCO_H
+    (smooth seeded colour fields) in `{split}/`, captions_{split}.json with
+    5 captions each, panoptic_{split}.json (categories 1..200) and
+    RGB-encoded panoptic PNGs of COCO_SEGMENTS segments each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    words = CAPTION_CORPUS.split()
+    img_dir, ann = os.path.join(root, split), os.path.join(root, "annotations")
+    pan_dir = os.path.join(ann, f"panoptic_{split}")
+    os.makedirs(img_dir)
+    os.makedirs(pan_dir)
+    images, captions, panoptic = [], [], []
+    for i in range(n):
+        image_id, name = 1000 + 7 * i, f"{1000 + 7 * i:012d}"
+        low = rng.integers(0, 256, (COCO_H // 32, COCO_W // 32, 3), dtype=np.uint8)
+        Image.fromarray(low).resize((COCO_W, COCO_H), Image.BICUBIC).save(
+            os.path.join(img_dir, name + ".jpg"), quality=90)
+        images.append(dict(id=image_id, file_name=name + ".jpg", width=COCO_W, height=COCO_H))
+        captions += [dict(image_id=image_id, id=10 * image_id + k,
+                          caption=" ".join(rng.choice(words, 8))) for k in range(5)]
+        seg_ids = rng.choice(1 << 24, COCO_SEGMENTS, replace=False)
+        cells = rng.integers(0, COCO_SEGMENTS, (COCO_H // 80, COCO_W // 80))
+        ids = np.kron(seg_ids[cells], np.ones((80, 80), dtype=np.int64))
+        rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1).astype(np.uint8)
+        Image.fromarray(rgb).save(os.path.join(pan_dir, name + ".png"))
+        panoptic.append(dict(image_id=image_id, file_name=name + ".png", segments_info=[
+            dict(id=int(s), category_id=int(rng.integers(1, 201))) for s in seg_ids]))
+    with open(os.path.join(ann, f"captions_{split}.json"), "w") as f:
+        json.dump(dict(images=images, annotations=captions), f)
+    with open(os.path.join(ann, f"panoptic_{split}.json"), "w") as f:
+        json.dump(dict(annotations=panoptic, categories=[dict(id=c, name=f"c{c}")
+                                                         for c in range(1, 201)]), f)
+
+
+def phase_extract(tmp: str):
+    """36a: the synthetic COCO tree through `python -m
+    panopticdiffusionmodels_torch.scripts.extract_mscoco_feature --size 256`
+    on the card (a seeded full-width SD KL-VAE .pth, a CLIP-L/14-shaped text
+    encoder), then in this process the val split of COCO_VAL_IMAGES, the
+    empty-context and the prompt scripts; every file is
+    there, and COCO_CHECK images' moments and contexts against the CPU's
+    (f32, relative deviation < 1e-3), their seg maps equal.  Returns the
+    feature root and the script's report."""
+    coco = os.path.join(tmp, "coco")
+    write_coco(coco, "train2017", COCO_IMAGES, 0)
+    write_coco(coco, "val2017", COCO_VAL_IMAGES, 1)
+    ae = os.path.join(tmp, "autoencoder_kl.pth")
+    torch.manual_seed(7)
+    torch.save(get_vae().state_dict(), ae)
+    clip_dir = os.path.join(tmp, "clip_l14")
+    write_clip_dir(clip_dir, CLIP_L_TEXT, 11, text_only=True)
+    out = os.path.join(tmp, "coco256_features")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "panopticdiffusionmodels_torch.scripts.extract_mscoco_feature",
+         "--split", "train2017", "--datadir", coco, "--outdir", out, "--size", "256",
+         "--autoencoder", ae, "--clip", clip_dir, "--batch", "8"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["images"] == COCO_IMAGES and report["device"].startswith("cuda"), report
+    extract_mscoco_feature.main(["--split", "val2017", "--datadir", coco, "--outdir", out,
+                                 "--size", "256", "--autoencoder", ae, "--clip", clip_dir])
+    extract_empty_feature.main(["--outdir", out, "--clip", clip_dir])
+    extract_test_prompt_feature.main(["--outdir", out, "--clip", clip_dir])
+    train = os.path.join(out, "train")
+    names = set(os.listdir(train))
+    for i in range(COCO_IMAGES):
+        assert {f"{i}.npy", f"{i}_seg.npy", f"{i}_text.txt"} <= names, i
+        assert {f"{i}_{k}.npy" for k in range(5)} <= names, i
+    assert len(os.listdir(os.path.join(out, "run_vis"))) == 12
+    db = MSCOCODatabase(os.path.join(coco, "train2017"),
+                        os.path.join(coco, "annotations", "captions_train2017.json"),
+                        os.path.join(coco, "annotations", "panoptic_train2017.json"),
+                        os.path.join(coco, "annotations", "panoptic_train2017"), size=256)
+    vae_cpu = extract_mscoco_feature.load_vae(ae, "cpu")
+    clip_cpu = clip.FrozenCLIPEmbedder(clip_dir, device="cpu")
+    worst = dict(moments=0.0, contexts=0.0)
+    for i in range(COCO_CHECK):
+        img, caps, seg = db[i]
+        card = torch.from_numpy(np.load(os.path.join(train, f"{i}.npy")))
+        cpu = torch.from_numpy(extract_mscoco_feature.encode_moments(vae_cpu, img, "cpu"))
+        worst["moments"] = max(worst["moments"], rel_dev(card, cpu))
+        card = torch.from_numpy(np.stack([np.load(os.path.join(train, f"{i}_{k}.npy"))
+                                          for k in range(5)]))
+        worst["contexts"] = max(worst["contexts"], rel_dev(card, clip_cpu.encode(caps)))
+        assert np.array_equal(np.load(os.path.join(train, f"{i}_seg.npy")), seg)
+        assert len(np.unique(seg)) > 1
+    print(f"[36a] extraction of {COCO_IMAGES} COCO images of {COCO_W}x{COCO_H} at 256: "
+          f"{report['images_per_s']:.2f} images/s ({report['seconds']:.2f} s in the script: "
+          f"VAE {report['vae_s']:.2f} s, CLIP {report['clip_s']:.2f} s, host "
+          f"{report['host_s']:.2f} s; {wall:.1f} s with the process's start); card vs CPU on "
+          f"{COCO_CHECK} images: moments rel {worst['moments']:.2e}, contexts rel "
+          f"{worst['contexts']:.2e} (bar 1e-3); seg maps equal ({card_line()})")
+    assert worst["moments"] < 1e-3 and worst["contexts"] < 1e-3, worst
+    return out, report
+
+
+def batch_ms(batches, n: int = COCO_HOST_BATCHES, drain: int = 6) -> float:
+    """ms a batch when `batches` is read back to back, after `drain` reads
+    (the native loader's queue holds 4 finished batches)."""
+    for _ in range(drain):
+        next(batches)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(batches)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_native_train(tmp: str, features: str):
+    """36b: mscoco_uvit_small at batch 64, fine-tune mode, save_attn, from
+    36a's features through the native loader: 3 + 20 steps through `fit` with
+    26 + 26 kernel calls a step; then blocks of COCO_BLOCK steps in turns
+    with the same trainer on the Python Loader; and the host's time to
+    assemble one batch with each."""
+    trainer = make_trainer("mscoco_uvit_small", tmp, features=features)
+    assert trainer.config.nnet.remat_policy == "save_attn" and trainer.config.nnet.use_checkpoint
+    counts, step_s = phase_train(trainer, "36b", {"fused_attention_qkv": LAUNCHES_PER_STEP,
+                                                  "fused_attention_qkv_vjp": LAUNCHES_PER_STEP})
+    assert trainer.input_pipeline == "native", trainer.input_pipeline
+    times = {"native": [], "python": []}
+    for arm in ("native", "python", "python", "native") * COCO_ROUNDS:
+        trainer.config.native_loader = arm == "native"
+        stream = trainer.data_stream(start_step=trainer.state.step)
+        assert trainer.input_pipeline == arm
+        trainer.train_step(next(stream))  # the block's first step is not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COCO_BLOCK):
+            trainer.train_step(next(stream))
+        torch.cuda.synchronize()
+        times[arm].append((time.perf_counter() - t0) / COCO_BLOCK * 1e3)
+    trainer.config.native_loader = True
+    workers = trainer.config.num_workers
+    native = NativeFeatureLoader(os.path.join(features, "train"), batch_size=64,
+                                 moments_shape=(8, 32, 32), context_shape=(77, 768), seg_in=256,
+                                 mask_size=64, num_threads=workers)
+    host = dict(native=batch_ms(iter(native)))
+    native.close()
+    python = Loader(trainer.dataset.get_split("train", labeled=True), batch_size=64,
+                    num_workers=workers)
+    host["python"] = batch_ms(iter(python))
+    result = {arm: dict(step_ms=float(np.median(v)), spread=[min(v), max(v)])
+              for arm, v in times.items()}
+    print(f"[36b] mscoco_uvit_small B=64 from extracted features: input_pipeline 'native', "
+          f"{TIMED_STEPS} steps at {step_s * 1e3:.1f} ms through fit, launches {counts}; in "
+          f"turns ({COCO_ROUNDS * 2} blocks of {COCO_BLOCK} each): native "
+          f"{result['native']['step_ms']:.1f} ms {fmt_spread(result['native']['spread'])}, "
+          f"Python Loader {result['python']['step_ms']:.1f} ms "
+          f"{fmt_spread(result['python']['spread'])} a step; host assembly of one batch of 64 "
+          f"at {workers} threads: native {host['native']:.2f} ms, Python {host['python']:.2f} "
+          f"ms ({card_line()})")
+    del trainer
+    return counts, dict(result, host_ms=host)
+
+
+CONVERT_CONFIG = '''"""mscoco_uvit_small in fine-tune mode on synthetic coco data, for
+chip_smoke.py phase 36c."""
+from panopticdiffusionmodels_torch.configs import get_config as zoo
+from panopticdiffusionmodels_torch.configs.base import d
+
+
+def get_config():
+    config = zoo("mscoco_uvit_small")
+    config.dataset = d(name="synthetic", n=128, z_shape=(32, 32, 8), clip_shape=(77, 768),
+                       mask_size=64)
+    config.pretrained = {pth!r}
+    config.num_workers = 4
+    return config
+'''
+
+
+def phase_convert(tmp: str):
+    """36c: a seeded reference-format .pth of mscoco_uvit_small through
+    `scripts/convert_checkpoint.py` on the card into `0.ckpt`; `Trainer`
+    resumes it strictly at step 0, its parameters and EMA equal the .pth
+    bit for bit, and it trains one step through kernels 1 and 2."""
+    pth = os.path.join(tmp, "convert_reference.pth")
+    write_pretrained(pth, get_config("mscoco_uvit_small"))
+    cfg = os.path.join(tmp, "convert_config.py")
+    with open(cfg, "w") as f:
+        f.write(CONVERT_CONFIG.format(pth=pth))
+    workdir = os.path.join(tmp, "converted")
+    t0 = time.perf_counter()
+    path = convert_checkpoint.main(["--config", cfg, "--nnet", pth,
+                                    "--out", os.path.join(workdir, "ckpts")])
+    convert_s = time.perf_counter() - t0
+    trainer = Trainer(cli.load_config(cfg), workdir, device="cuda")
+    assert trainer.resume() and trainer.state.step == 0
+    want = reference_nnet_state_dict(load_torch_state_dict(pth))
+    assert sorted(want) == sorted(trainer.state.params)
+    for name, p in trainer.state.params.items():
+        assert torch.equal(p.detach().cpu(), want[name]), name
+        assert torch.equal(trainer.state.ema[name].cpu(), want[name]), name
+    zero_counts()
+    metrics = trainer.train_step(next(trainer.data_stream()))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert np.isfinite(train_loss(metrics)) and counts["fused_attention_qkv"] == \
+        counts["fused_attention_qkv_vjp"] == LAUNCHES_PER_STEP, counts
+    print(f"[36c] convert_checkpoint: {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB) in {convert_s:.2f} s; Trainer resumed it "
+          f"strictly at step 0 with {len(trainer.state.frozen)} frozen parameters, parameters "
+          f"and EMA equal to the .pth bit for bit; one step, loss {train_loss(metrics):.4f}")
+    del trainer
+
+
+def state_bytes(trainer) -> dict:
+    """Bytes this process holds of the train state's f32 parameters,
+    gradients (every parameter's, frozen ones too: the gradient norm reads
+    them), AdamW moments (the trainable ones') and EMA, its shards under
+    FSDP; their total; and `one_process`, the same tensors whole."""
+    state = trainer.state
+    out = dict(params=0, grads=0, moments=0, ema=0)
+    one = 0
+    for name, p in state.params.items():
+        parts = dict(params=[p], ema=[state.ema[name]],
+                     grads=[p.grad] if p.grad is not None else [],
+                     moments=[state.optimizer.state[p][k] for k in ("exp_avg", "exp_avg_sq")]
+                     if p in state.optimizer.state else [])
+        for key, tensors in parts.items():
+            out[key] += sum(local(t).numel() * 4 for t in tensors)
+            one += sum(t.numel() * 4 for t in tensors)
+    out["total"] = sum(out.values())
+    out["one_process"] = one
+    return out
+
+
+def tiny_f32_config():
+    """Phase 31b's synthetic_tiny in f32 with the plain attention (the
+    kernels take bf16): FSDP against one process to 1e-5."""
+    config = tiny_cuda_config()
+    config.compute_dtype = "float32"
+    config.nnet.attn_impl = "plain"
+    return config
+
+
+def fsdp_child(rank: int, port: int, tmp: str) -> None:
+    """Phase 37: one of two processes on the one card over gloo at
+    mesh.fsdp = 2: (a) synthetic_tiny in f32, 3 steps through `fit`, the
+    gathered parameters and EMA written to `tmp/fsdp_tiny{rank}.pt`; (b)
+    mscoco_uvit_small at the global batch of 64 (32 a rank), fine-tune
+    mode, 2 + FSDP_TIMED steps through `fit` with the launches counted, and
+    the bytes it holds of the train state, to `tmp/fsdp_small{rank}.json`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=FSDP_WORLD, rank=rank)
+    try:
+        config = tiny_f32_config()
+        config.mesh.fsdp = FSDP_WORLD
+        with no_tf32():
+            tiny = Trainer(config, os.path.join(tmp, f"fsdp_tiny_wd{rank}"), device="cuda:0")
+            assert tiny.fsdp is not None and tiny.is_main == (rank == 0)
+            tiny.fit()
+        torch.save(dict(params=full({n: p.detach() for n, p in tiny.state.params.items()}),
+                        ema=full(dict(tiny.state.ema)), step=tiny.state.step),
+                   os.path.join(tmp, f"fsdp_tiny{rank}.pt"))
+        del tiny
+        small = make_trainer("mscoco_uvit_small", os.path.join(tmp, f"fsdp_small{rank}"),
+                             mesh=dict(fsdp=FSDP_WORLD))
+        small.fit(max_steps=2)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        history = small.fit(max_steps=2 + FSDP_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"fsdp_small{rank}.json"), "w") as f:
+            json.dump(dict(launches=read_counts(), step_ms=wall / FSDP_TIMED * 1e3,
+                           losses=[train_loss(m) for m in history], held=state_bytes(small),
+                           max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_fsdp(tmp: str) -> dict:
+    """37: two gloo processes on the one card at mesh.fsdp = 2 (NCCL refuses
+    two ranks on one card): synthetic_tiny's gathered parameters and EMA
+    after 3 steps against one process at the global batch (f32 with TF32
+    off, max absolute difference < 1e-5); mscoco_uvit_small's launches a
+    step (26 + 26 in each rank), the bytes of the train state each rank
+    holds against what one process holds (about half), and its step time,
+    which gloo's copies through the host dominate (recorded, not judged)."""
+    port = free_port()
+    run_children([f"fsdp_child({r}, {port}, {tmp!r})" for r in range(FSDP_WORLD)], timeout=600)
+    with no_tf32():
+        single = Trainer(tiny_f32_config(), os.path.join(tmp, "fsdp_tiny_single"),
+                         device="cuda")
+        single.fit()
+    worst = 0.0
+    for r in range(FSDP_WORLD):
+        got = torch.load(os.path.join(tmp, f"fsdp_tiny{r}.pt"), weights_only=True)
+        assert got["step"] == TINY_STEPS
+        for name, p in single.state.params.items():
+            worst = max(worst, float((got["params"][name].cpu() - p.detach().cpu()).abs().max()),
+                        float((got["ema"][name].cpu() - single.state.ema[name].cpu()).abs().max()))
+    smalls = []
+    for r in range(FSDP_WORLD):
+        with open(os.path.join(tmp, f"fsdp_small{r}.json")) as f:
+            smalls.append(json.load(f))
+    per_step = {k: FSDP_TIMED * (LAUNCHES_PER_STEP if k in ("fused_attention_qkv",
+                                                            "fused_attention_qkv_vjp") else 0)
+                for k in read_counts()}
+    for r in smalls:
+        assert r["launches"] == per_step, r["launches"]
+        assert np.isfinite(r["losses"]).all(), r["losses"]
+    shares = [r["held"]["total"] / r["held"]["one_process"] for r in smalls]
+    print(f"[37] FSDP over two gloo processes on one card: synthetic_tiny (f32) parameters and "
+          f"EMA after {TINY_STEPS} steps vs one process at B={TINY_BATCH}: max abs diff "
+          f"{worst:.2e} (bar 1e-5); mscoco_uvit_small B=64 (32 a rank): launches a step "
+          f"{smalls[0]['launches']} / {FSDP_TIMED}, step {smalls[0]['step_ms']:.1f} / "
+          f"{smalls[1]['step_ms']:.1f} ms (gloo through the host, not judged), train state "
+          f"held a rank {[r['held'] for r in smalls]}, share of one process's "
+          f"{[round(x, 4) for x in shares]}, peak allocated "
+          f"{[round(r['max_memory_allocated_gb'], 3) for r in smalls]} GB ({card_line()})")
+    assert worst < 1e-5, worst
+    assert all(x < 0.55 for x in shares), shares
+    return dict(tiny_max_abs=worst, small=smalls)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -2654,6 +3038,15 @@ def main() -> int:
         del huge_pipe
         torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory() as tmp:
+        features, _ = phase_extract(tmp)
+        torch.cuda.empty_cache()
+        native_counts, _ = phase_native_train(tmp, features)
+        torch.cuda.empty_cache()
+        phase_convert(tmp)
+        torch.cuda.empty_cache()
+        fsdp = phase_fsdp(tmp)
+
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
     main_rows = [r for r in rows if tuple(r["shape"]) in MAIN_PATH_SHAPES]
@@ -2695,7 +3088,11 @@ def main() -> int:
                           "pallas_recompute step (batch 64)":
                               recompute["launches"]["fused_attention_qkv"],
                           f"mscoco_uvit_mid image-only training ({TIMED_STEPS} steps)":
-                              mid_counts["fused_attention_qkv"]},
+                              mid_counts["fused_attention_qkv"],
+                          f"native-loader training from extracted features ({TIMED_STEPS} "
+                          "steps)": native_counts["fused_attention_qkv"],
+                          f"FSDP rank 0, mscoco_uvit_small ({FSDP_TIMED} steps)":
+                              fsdp["small"][0]["launches"]["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -2729,7 +3126,11 @@ def main() -> int:
                               sum(r["launches"]["fused_attention_qkv_vjp"]
                                   for r in remat.values()),
                           f"mscoco_uvit_mid image-only training ({TIMED_STEPS} steps)":
-                              mid_counts["fused_attention_qkv_vjp"]},
+                              mid_counts["fused_attention_qkv_vjp"],
+                          f"native-loader training from extracted features ({TIMED_STEPS} "
+                          "steps)": native_counts["fused_attention_qkv_vjp"],
+                          f"FSDP rank 0, mscoco_uvit_small ({FSDP_TIMED} steps)":
+                              fsdp["small"][0]["launches"]["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,

@@ -20,6 +20,12 @@ dp = -1, takes every process; `train.batch_size` is the global batch):
 
     torchrun --nproc_per_node=N -m panopticdiffusionmodels_torch train --config=...
 
+Fully sharded training (parameters, gradients, moments and EMA sharded over
+mesh.fsdp processes; with dp = -1 the other processes are replicas, HSDP):
+
+    torchrun --nproc_per_node=4 -m panopticdiffusionmodels_torch train \
+        --config=mscoco_uvit_small --config.mesh.fsdp=2
+
 Sequence-parallel training on several cards, one process per sp rank:
 
     torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \

@@ -140,7 +140,9 @@ class MSCOCOFeatureDataset:
 
 class MSCOCO256Features(DatasetFactory):
     """mscoco256_features (reference `datasets.py:616-652`): `train/` and `val/`
-    feature dirs and `empty_context.npy` for CFG."""
+    feature dirs, `empty_context.npy` for CFG, and `contexts`, the fixed
+    prompts' contexts of `run_vis/*.npy` stacked in name order (None without
+    them; `scripts/extract_test_prompt_feature.py` writes them)."""
 
     def __init__(self, path: str, cfg: bool = False, p_uncond: Optional[float] = None,
                  mask_size: int = 64):
@@ -156,6 +158,11 @@ class MSCOCO256Features(DatasetFactory):
             self.train = CFGDataset(train, p_uncond, self.empty_context)
         else:
             self.train = train
+        vis = os.path.join(path, "run_vis")
+        names = sorted(n for n in os.listdir(vis) if n.endswith(".npy")) \
+            if os.path.isdir(vis) else []
+        self.contexts = np.stack([np.load(os.path.join(vis, n)) for n in names]) \
+            if names else None
 
     @property
     def fid_stat(self):

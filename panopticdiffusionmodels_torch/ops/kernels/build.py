@@ -5,6 +5,10 @@ first use into `build/torch_kernels/lib<name>-<hash>.so` at the repository
 root (listed in `.gitignore`); the hash covers the source, the shared
 headers `csrc/*.cuh` and the flags, so an edited source or header is
 rebuilt.  Nothing is compiled when a module is imported.
+
+`build_host_library` does the same for host C++ that needs no card (the
+native feature loader, `data/csrc/fastloader.cpp`): g++ into
+`build/torch_native/lib<name>.so`.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+HOST_BUILD_DIR = BUILD_DIR.parent / "torch_native"
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")  # native/Makefile's
 
 # name -> (seconds, nvcc's output: ptxas register / shared-memory report)
 BUILD_LOG: Dict[str, tuple] = {}
@@ -87,3 +94,28 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def build_host_library(source: Path) -> Path:
+    """Compile the host C++ file `source` with g++ into
+    `build/torch_native/lib<stem>.so`, unless that library was built from
+    these bytes and flags (a `.sha256` file beside it records them); returns
+    its path.  Raises when g++ is missing or fails."""
+    source = Path(source)
+    output = HOST_BUILD_DIR / f"lib{source.stem}.so"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(HOST_CXX_FLAGS).encode()).hexdigest()
+    stamp = output.with_suffix(".so.sha256")
+    if output.exists() and stamp.exists() and stamp.read_text() == digest:
+        return output
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler (g++ or $CXX) to build {source.name}")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = output.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{cxx} failed for {source.name}:\n{proc.stderr}")
+    os.replace(tmp, output)  # atomic: a concurrent builder or loader sees a whole file
+    stamp.write_text(digest)
+    return output

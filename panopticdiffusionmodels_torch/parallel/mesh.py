@@ -1,5 +1,6 @@
-"""The layouts of a training run over processes: data parallelism, or
-sequence parallelism over a mesh axis `sp`.
+"""The layouts of a training run over processes: data parallelism, fully
+sharded data parallelism (with replicas: HSDP), or sequence parallelism
+over a mesh axis `sp`.
 
 Port of `panopticdiffusionmodels_tpu/parallel/mesh.py`.  There, the mesh's
 axes shard every array by annotation and the partitioner inserts the
@@ -10,6 +11,12 @@ collectives.  Here `from_mesh` returns a context for the world it finds:
     `process_batch_slice`, `local_batch_size`): each process holds a replica
     of the model and loads its contiguous rows of the global batch; the
     trainer wraps the model in `DistributedDataParallel`;
+  * `FullyShardedDataParallel` (JAX `make_mesh` with fsdp > 1): the world
+    as a (dp, fsdp) device mesh; parameters, gradients, optimizer moments
+    and EMA are sharded over fsdp and replicated over dp (HSDP when
+    dp > 1; `parallel/sharding.py` applies FSDP2's `fully_shard`), and each
+    process loads the rows of its GLOBAL rank over (dp, fsdp) jointly, as
+    JAX shards the batch over both axes (`mesh.py:69-72`);
   * a `SequenceParallel` context, which says where the token shards live and
     moves them explicitly:
 
@@ -37,8 +44,8 @@ collectives.  Here `from_mesh` returns a context for the world it finds:
         one card runs the ring.
 
 Every context carries `rank`, `world_size` and `is_main` (rank 0, the one
-process that writes).  fsdp, tp, pp > 1, and dp beside sp, raise: they come
-with ROADMAP Queue 1 entry 4.
+process that writes).  tp, pp > 1, and dp or fsdp beside sp, raise: they
+come with ROADMAP Queue 1 entry 4.
 """
 from __future__ import annotations
 
@@ -259,29 +266,73 @@ class DataParallel:
         return slice(self.rank * per, (self.rank + 1) * per)
 
 
+class FullyShardedDataParallel(DataParallel):
+    """fsdp > 1: the world as a (dp, fsdp) mesh, global rank = dp index *
+    fsdp + fsdp index.  The model's state is sharded over fsdp and
+    replicated over dp; the batch rows follow the global rank, as
+    `DataParallel`'s do."""
+
+    def __init__(self, world_size: int, rank: int, dp: int, fsdp: int):
+        super().__init__(world_size, rank)
+        self.dp, self.fsdp = dp, fsdp
+        self._meshes = {}
+
+    def device_mesh(self, device_type: str):
+        """The `DeviceMesh` that `fully_shard` shards over: ('fsdp',), or
+        ('dp', 'fsdp') for HSDP; built once per device type."""
+        if device_type not in self._meshes:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            shape, names = ((self.fsdp,), ("fsdp",)) if self.dp == 1 else \
+                ((self.dp, self.fsdp), ("dp", "fsdp"))
+            self._meshes[device_type] = init_device_mesh(device_type, shape,
+                                                         mesh_dim_names=names)
+        return self._meshes[device_type]
+
+
 _LATER = "{}: comes with a later distributed slice (ROADMAP Queue 1 entry 4)"
+
+
+def _sharded(mesh, world: int, fsdp: int, dp: int) -> FullyShardedDataParallel:
+    """The fsdp > 1 layout, or ValueError when the world cannot hold it."""
+    if fsdp > world:
+        raise ValueError(f"mesh.fsdp = {fsdp} needs {fsdp} processes, got {world}")
+    if dp == -1:
+        if world % fsdp:
+            raise ValueError(f"mesh.fsdp = {fsdp} does not divide {world} processes")
+        dp = world // fsdp
+    if dp * fsdp != world:
+        raise ValueError(f"mesh {dict(mesh)}: dp x fsdp = {dp * fsdp} is not the world of "
+                         f"{world} processes")
+    return FullyShardedDataParallel(world, dist.get_rank(), dp, fsdp)
 
 
 def from_mesh(mesh) -> Union[None, DataParallel, SequenceParallel]:
     """The layout of a config's `mesh` for the world this process is in:
-    None (one process and no process group, sp = 1), a `DataParallel`
-    (sp = 1, dp = -1 or dp = world, over the initialised default group, of
-    one process too) or a `SequenceParallel` context (sp > 1, dp at -1 or 1).
+    None (one process and no process group, sp = 1, fsdp = 1), a
+    `DataParallel` (sp = 1, dp = -1 or dp = world, over the initialised
+    default group, of one process too), a `FullyShardedDataParallel` (fsdp >
+    1, dp = -1 or dp x fsdp = world) or a `SequenceParallel` context (sp >
+    1, dp at -1 or 1).
 
-    Raises `NotImplementedError` for what the port cannot run yet (fsdp, tp
-    or pp > 1; dp beside sp; an explicit dp other than the world; more
-    processes than sp under 'process_group'), `ValueError` for an unknown
-    `sp_mode` and when the number of processes is neither 1 (in_process)
-    nor sp (process_group)."""
+    Raises `NotImplementedError` for what the port cannot run yet (tp or pp
+    > 1; dp or fsdp beside sp; an explicit dp other than the world at fsdp
+    = 1; more processes than sp under 'process_group'), `ValueError` for an
+    unknown `sp_mode`, when the number of processes is neither 1
+    (in_process) nor sp (process_group), and when fsdp exceeds the world or
+    dp x fsdp is not the world."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    others = {k: int(mesh.get(k, 1)) for k in ("fsdp", "tp", "pp")}
-    if any(v != 1 for v in others.values()):
-        raise NotImplementedError(_LATER.format(f"mesh {dict(mesh)}: fsdp, tp or pp > 1"))
+    if any(int(mesh.get(k, 1)) != 1 for k in ("tp", "pp")):
+        raise NotImplementedError(_LATER.format(f"mesh {dict(mesh)}: tp or pp > 1"))
     sp = int(mesh.get("sp", 1))
     dp = int(mesh.get("dp", -1))
+    fsdp = int(mesh.get("fsdp", 1))
+    if fsdp > 1 and sp == 1:
+        return _sharded(mesh, world, fsdp, dp)
     if sp > 1:
-        if dp not in (-1, 1):
-            raise NotImplementedError(_LATER.format(f"mesh {dict(mesh)}: dp beside sp > 1"))
+        if dp not in (-1, 1) or fsdp != 1:
+            raise NotImplementedError(_LATER.format(
+                f"mesh {dict(mesh)}: dp or fsdp beside sp > 1"))
         mode = mesh.get("sp_mode", "process_group")
         if mode not in SP_MODES:
             raise ValueError(f"mesh.sp_mode={mode!r}: one of {SP_MODES}")

@@ -17,6 +17,12 @@ them after the next step had begun would save a later state.  At most one
 write is pending: a save first waits for the one before.  `wait_for_saves`
 waits for it and re-raises its error; `latest_step`, `load_checkpoint` and
 `resume` call it first, and so does an `atexit` hook.
+
+A sharded (FSDP) train state gathers whole tensors in `state_dict()`, a
+collective: every rank calls `save_checkpoint`, the gather runs on each at
+the call, and only the rank that passes `write=True` (rank 0) stages and
+writes the file, the same file one process writes.  Every rank reads it
+back whole and keeps its shards (`TrainState.load_state_dict`).
 """
 from __future__ import annotations
 
@@ -96,18 +102,23 @@ def _write_in_background(payload: dict, path: str) -> None:
         _failure.append(e)
 
 
-def save_checkpoint(root: str, state, step: Optional[int] = None, block: bool = True) -> str:
+def save_checkpoint(root: str, state, step: Optional[int] = None, block: bool = True,
+                    write: bool = True) -> str:
     """Write the state's payload under {root}/{step}.ckpt (default: its
     step).  `block=False` returns once the payload is in host memory and
     writes the file on a background thread; either way the file holds the
-    state as it was at the call."""
+    state as it was at the call.  `write=False` only takes part in the
+    gather of a sharded state (the ranks that do not write)."""
     global _pending
     with _lock:
         wait_for_saves()
-        os.makedirs(root, exist_ok=True)
         path = ckpt_path(root, state.step if step is None else step)
+        state_dict = state.state_dict()
+        if not write:
+            return path
+        os.makedirs(root, exist_ok=True)
         slots = [0]
-        payload = _stage(state.state_dict(), slots)
+        payload = _stage(state_dict, slots)
         if slots[0]:
             torch.cuda.synchronize()  # the non_blocking copies into the staging buffers
         if block:

@@ -13,6 +13,13 @@ lr is 0.  `optimizer='adam'` is `torch.optim.Adam` for optax `adam` (no
 weight decay; the same m_hat / (sqrt(v_hat) + eps)).  Frozen parameters
 (the pretrained image stream) are left out of the optimizer, which the JAX
 `multi_transform` + `set_to_zero` amounts to.
+
+Built from a network that `parallel/sharding.py` has sharded (FSDP), the
+parameters are `DTensor`s, and so are the moments and the EMA made from
+them: each rank updates its own shards.  `state_dict` then gathers whole
+tensors (a collective every rank enters), so a checkpoint holds what one
+process's holds, and `load_state_dict` keeps each rank's chunk of the whole
+tensors it reads.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import full, is_sharded, local, shard_like
 
 # Top-level modules of the image stream that fine-tuning the panoptic model
 # freezes (reference `train_t2i_discrete.py:313-319`; JAX
@@ -86,23 +95,38 @@ class TrainState:
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.step)
         self.optimizer.step()
-        with torch.no_grad():
-            ema, params = list(self.ema.values()), [p.detach() for p in self.params.values()]
+        with torch.no_grad():  # on this rank's shards when sharded
+            ema = [local(e) for e in self.ema.values()]
+            params = [local(p.detach()) for p in self.params.values()]
             torch._foreach_mul_(ema, ema_rate)
             torch._foreach_add_(ema, params, alpha=1.0 - ema_rate)
         self.step += 1
 
+    @property
+    def sharded(self) -> bool:
+        return any(is_sharded(p) for p in self.params.values())
+
     def state_dict(self) -> dict:
         """{step, params, ema_params, opt_state}: the live tensors, not
-        copies (`checkpoint.save_checkpoint` copies them to the host)."""
-        return {"step": self.step, "params": {k: v.detach() for k, v in self.params.items()},
-                "ema_params": self.ema, "opt_state": self.optimizer.state_dict()}
+        copies (`checkpoint.save_checkpoint` copies them to the host); when
+        sharded, whole tensors gathered from every rank."""
+        sd = {"step": self.step, "params": {k: v.detach() for k, v in self.params.items()},
+              "ema_params": self.ema, "opt_state": self.optimizer.state_dict()}
+        return full(sd) if self.sharded else sd
 
     def load_state_dict(self, payload: dict) -> None:
+        opt_state = payload["opt_state"]
         with torch.no_grad():
             for name, p in self.params.items():
-                p.copy_(payload["params"][name])
-                self.ema[name].copy_(payload["ema_params"][name])
-        self.optimizer.load_state_dict(payload["opt_state"])
+                for dst, src in ((p, payload["params"][name]),
+                                 (self.ema[name], payload["ema_params"][name])):
+                    dst.copy_(shard_like(src, dst) if is_sharded(dst) else src)
+        if self.sharded:  # each moment as its parameter is laid out
+            trainable = [p for g in self.optimizer.param_groups for p in g["params"]]
+            opt_state = dict(opt_state, state={
+                i: {k: shard_like(v, trainable[i]) if torch.is_tensor(v) and v.dim() else v
+                    for k, v in st.items()}
+                for i, st in opt_state["state"].items()})
+        self.optimizer.load_state_dict(opt_state)
         self.step = int(payload["step"])
 

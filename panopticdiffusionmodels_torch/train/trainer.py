@@ -43,6 +43,16 @@ images (`pixel_sde`, unconditional or class-conditional, reference
     micro-batch but the last under `no_sync()`), and the losses are averaged
     over the processes, so a step computes what one process computes on the
     global batch;
+  * `mesh.fsdp > 1` trains fully sharded (`parallel/sharding.py`, FSDP2):
+    the network is sharded over fsdp (and replicated over dp: HSDP) before
+    the train state is built, so the optimizer moments and the EMA are
+    sharded with it; the batch rows, the draws and the averaged metrics are
+    data parallelism's, the gradient collective is held off between
+    micro-batches with `set_requires_gradient_sync`, and `grad_norm` is the
+    norm of the whole gradient over every shard.  Every rank gathers the
+    state for a checkpoint, rank 0 writes it: the file one process writes.
+    The callbacks, which sample on rank 0 alone, do not run (a warning
+    says so), and every `save_interval` step is checkpointed;
   * `mesh.sp > 1` (the other axes at 1) trains sequence-parallel, as the
     JAX trainer does: the model's attention becomes the ring
     (`attn_impl='ring'`) over the layout's sp context.
@@ -97,7 +107,8 @@ from ..diffusion.sde import l_simple as l_simple_continuous
 from ..models import get_nnet
 from ..models.vae import get_model as get_vae
 from ..models.vae import sample_from_moments
-from ..parallel.mesh import DataParallel, SequenceParallel, from_mesh
+from ..parallel import sharding
+from ..parallel.mesh import DataParallel, FullyShardedDataParallel, SequenceParallel, from_mesh
 from ..utils.weights import load_nnet_state_dict, load_torch_state_dict
 from . import checkpoint as ckpt_lib
 from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
@@ -160,6 +171,26 @@ def _check_supported(config, task: str) -> None:
                                   "'adam'")
 
 
+def make_train_state(config, nnet: torch.nn.Module, task: str) -> TrainState:
+    """The train state of `nnet` as `Trainer` builds it: the config's
+    optimizer and learning-rate schedule; with `config.pretrained` set, a
+    t2i_discrete fine-tune leaves the image stream out of the optimizer (a
+    class-conditional one freezes nothing; JAX's freeze set matches U-ViT
+    names only, so a UNet fine-tune freezes nothing there and here).
+    `scripts/convert_checkpoint.py` builds the same, so that
+    `Trainer.resume` loads its checkpoint strictly."""
+    frozen = ()
+    if config.get("pretrained", "") and task == "t2i_discrete":
+        frozen = panoptic_image_stream_frozen(n for n, _ in nnet.named_parameters())
+    lr_sched = make_lr_schedule(
+        config.optimizer.lr, config.lr_scheduler.name,
+        warmup_steps=config.lr_scheduler.get("warmup_steps", -1),
+        total_steps=config.train.n_steps)
+    return TrainState(nnet, lr_sched, betas=config.optimizer.betas,
+                      weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen,
+                      optimizer=config.optimizer.name)
+
+
 class Trainer:
     def __init__(self, config, workdir: Optional[str] = None, device="cuda"):
         self.task = config.get("task", None) or infer_task(config)
@@ -174,6 +205,7 @@ class Trainer:
         layout = from_mesh(config.get("mesh", {}))
         self.sp = layout if isinstance(layout, SequenceParallel) else None
         self.dp = layout if isinstance(layout, DataParallel) else None
+        self.fsdp = layout if isinstance(layout, FullyShardedDataParallel) else None
         self.is_main = layout is None or layout.is_main
         self.workdir = workdir or config.get("workdir", "") or "results/run"
         self.ckpt_root = os.path.join(self.workdir, "ckpts")
@@ -198,7 +230,6 @@ class Trainer:
             torch.manual_seed(config.seed)
             self.nnet = get_nnet(config.nnet.name, **nnet_kwargs)
 
-        frozen = set()
         pretrained = config.get("pretrained", "")
         if pretrained:
             if not os.path.exists(pretrained):
@@ -207,25 +238,16 @@ class Trainer:
                 raise FileNotFoundError(f"config.pretrained={pretrained!r} does not exist")
             # a UNet reads an LDM / miniSD checkpoint into its image stream (JAX l.220-229)
             load_nnet_state_dict(self.nnet, load_torch_state_dict(pretrained), config.nnet)
-            # JAX's freeze set matches U-ViT names only, so a UNet fine-tune
-            # freezes nothing there and here.
-            if self.task == "t2i_discrete":  # a class-conditional fine-tune freezes nothing
-                frozen = panoptic_image_stream_frozen(
-                    n for n, _ in self.nnet.named_parameters())
         self.nnet.to(self.device)
+        if self.fsdp is not None:  # before the state: its moments and EMA follow the shards
+            sharding.shard_model(self.nnet, self.fsdp, self.device)
 
-        lr_sched = make_lr_schedule(
-            config.optimizer.lr, config.lr_scheduler.name,
-            warmup_steps=config.lr_scheduler.get("warmup_steps", -1),
-            total_steps=config.train.n_steps)
-        self.state = TrainState(
-            self.nnet, lr_sched, betas=config.optimizer.betas,
-            weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen,
-            optimizer=config.optimizer.name)
-        # What the loss calls: the network, or its data-parallel wrapper, whose
-        # backward all-reduces (averages) the gradients bucket by bucket.
+        self.state = make_train_state(config, self.nnet, self.task)
+        # What the loss calls: the network (sharded or not), or its data-parallel
+        # wrapper, whose backward all-reduces (averages) the gradients bucket by
+        # bucket.
         self.model = self.nnet
-        if self.dp is not None:
+        if self.dp is not None and self.fsdp is None:
             self.model = torch.nn.parallel.DistributedDataParallel(
                 self.nnet, device_ids=[self.device.index] if self.device.type == "cuda" else None,
                 # the mask head takes no gradient when the true mask is fed in
@@ -245,6 +267,7 @@ class Trainer:
             self.vae.load_state_dict(load_torch_state_dict(ae_path), strict=True)
             self.vae.to(self.device).eval().requires_grad_(False)
         self._pipeline = None  # the sampling pipeline, built by the first sampler
+        self.input_pipeline = None  # 'native' or 'python', set by data_stream
 
     # --- loss and step ------------------------------------------------------
 
@@ -382,7 +405,7 @@ class Trainer:
         for i in range(accum):
             mn = {k: v.chunk(accum)[i] for k, v in noise.items()}
             last = i == accum - 1
-            with contextlib.nullcontext() if self.dp is None or last else self.model.no_sync():
+            with self._grad_sync(last):
                 loss, m = self._loss(tuple(x[i] for x in micro), mn)
                 (loss / (accum * world)).backward()
             parts.append(m)
@@ -395,9 +418,19 @@ class Trainer:
             dist.all_reduce(mean)
             metrics = dict(zip(names, mean / self.dp.world_size))
         grads = [p.grad for p in self.state.params.values() if p.grad is not None]
-        metrics["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        metrics["grad_norm"] = sharding.grad_norm(grads, self.fsdp) if self.fsdp else \
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         return metrics
+
+    def _grad_sync(self, sync: bool):
+        """The context of one micro-batch's backward: with `sync` False a
+        data-parallel run keeps its gradients local (DDP's `no_sync`; FSDP's
+        `set_requires_gradient_sync(False)`, which keeps them unsharded)."""
+        if self.fsdp is not None:
+            self.nnet.set_requires_gradient_sync(sync)
+        elif self.dp is not None and not sync:
+            return self.model.no_sync()
+        return contextlib.nullcontext()
 
     def train_step(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None):
         """One optimizer step on `batch`; returns metrics as device tensors."""
@@ -418,9 +451,11 @@ class Trainer:
         compute dtype, the trainer's VAE, and the dataset's empty context for
         CFG.  Built once; `build_sample_fn` copies the EMA weights into it at
         every call."""
-        if self.sp is not None:
-            raise NotImplementedError("sampling from a sequence-parallel trainer comes with "
-                                      "the distributed slice")
+        if self.sp is not None or self.fsdp is not None:
+            raise NotImplementedError("sampling from a sequence-parallel or fully sharded "
+                                      "trainer comes with a later distributed slice (ROADMAP "
+                                      "Queue 1 entry 4); sample from its checkpoint in one "
+                                      "process")
         if self._pipeline is None:
             from ..serving import GenerationPipeline
 
@@ -487,14 +522,21 @@ class Trainer:
 
     def data_stream(self, start_step: int = 0):
         """Batches on the trainer's device from step `start_step` on: the
-        loader's index-only skip, then the device feed (uint8 panoptic ids by
-        default, labels as they are, optional bf16 float fields,
-        `train.transfer_dtype`)."""
+        native C++ loader's stream (`_native_stream`) where it applies, else
+        the Python `Loader` with its index-only skip; then the device feed
+        (uint8 panoptic ids by default, labels as they are, optional bf16
+        float fields, `train.transfer_dtype`).  Sets `input_pipeline` to
+        'native' or 'python'."""
         cfgt = self.config.train
         cast_f32 = torch.bfloat16 if cfgt.get("transfer_dtype", "") == "bfloat16" else None
         cast_int = (np.uint8 if self.config.nnet.get("enable_panoptic", False)
                     and self.config.nnet.get("mask_bits", 8) <= 8
                     and cfgt.get("transfer_mask_uint8", True) else None)
+        native = self._native_stream(start_step)
+        self.input_pipeline = "python" if native is None else "native"
+        if native is not None:
+            return prefetch_to_device(native, self.device, cast_f32=cast_f32,
+                                      cast_int=cast_int)
         procs = {} if self.dp is None else dict(process_index=self.dp.rank,
                                                 process_count=self.dp.world_size)
         loader = Loader(self.dataset.get_split("train", labeled=True),
@@ -505,6 +547,68 @@ class Trainer:
             loader.skip(start_step)
         return prefetch_to_device(iter(loader), self.device, cast_f32=cast_f32,
                                   cast_int=cast_int)
+
+    def _native_stream(self, start_step: int = 0):
+        """The native C++ loader's batches (`data/native_loader.py`), JAX
+        `Trainer._native_stream` (l.708-777), or None where it does not
+        apply: a task other than t2i_discrete, `config.native_loader` False,
+        a dataset other than `MSCOCO256Features` with a `train/` directory,
+        or `ProcessGroupSP`, whose ranks must read the same rows while the
+        native loader gives each process a disjoint subset of the files.
+        When the library cannot be built it logs a warning and returns None.
+
+        Each data-parallel process reads its strided subset of the files and
+        its rows of the global batch.  The C++ loader cannot fast-forward, so
+        its seed folds in the start step (seed + rank + 1_000_003 * step): a
+        resumed run gets a fresh shuffle.  The CFG drop to the empty context
+        (`dataset.p_uncond`) is drawn here, from
+        `np.random.default_rng(seed + rank + start_step)`, as JAX draws it."""
+        from ..data import native_loader
+        from ..data.datasets import MSCOCO256Features
+        from ..parallel.mesh import ProcessGroupSP
+
+        config = self.config
+        if self.task != "t2i_discrete" or not config.get("native_loader", True):
+            return None
+        if isinstance(self.sp, ProcessGroupSP) or not isinstance(self.dataset,
+                                                                MSCOCO256Features):
+            return None
+        train_dir = os.path.join(self.dataset.path, "train")
+        if not os.path.isdir(train_dir):
+            return None
+        if not native_loader.available():
+            log.warning("the native C++ loader could not be built; the Python Loader "
+                        "feeds the trainer")
+            return None
+        rank, world = (0, 1) if self.dp is None else (self.dp.rank, self.dp.world_size)
+        h, w, c = config.z_shape
+        enable_panoptic = config.nnet.get("enable_panoptic", True)
+        mask_size = config.nnet.mask_size if enable_panoptic else None
+        seg_probe = next((n for n in os.listdir(train_dir) if n.endswith("_seg.npy")), None)
+        seg_in = (np.load(os.path.join(train_dir, seg_probe)).shape[0] if seg_probe
+                  else mask_size or 0)
+        loader = native_loader.NativeFeatureLoader(
+            train_dir, batch_size=config.train.batch_size, moments_shape=(2 * c, h, w),
+            context_shape=(config.nnet.num_clip_token, config.nnet.clip_dim),
+            seg_in=seg_in, mask_size=mask_size, seed=config.seed + rank + 1_000_003 * start_step,
+            num_threads=max(1, config.get("num_workers", 8)), process_index=rank,
+            process_count=world)
+        p_uncond = float(config.dataset.get("p_uncond", 0.0) or 0.0)
+        empty = np.asarray(self.dataset.empty_context, dtype=np.float32)
+        rng = np.random.default_rng(config.seed + rank + start_step)
+
+        def stream():
+            try:
+                for batch in loader:
+                    if p_uncond > 0.0:
+                        context = batch[1]
+                        context[rng.random(context.shape[0]) < p_uncond] = empty
+                    yield batch
+            finally:
+                loader.close()
+
+        log.info("the native C++ loader feeds the trainer")
+        return stream()
 
     def resume(self) -> bool:
         return ckpt_lib.resume(self.ckpt_root, self.state)
@@ -528,13 +632,15 @@ class Trainer:
         `cli.DIST_TIMEOUT`, is long enough for a FID evaluation).  Without an
         eval callback every `save_interval` step is checkpointed
         asynchronously (`block=False`), and every write is on disk when `fit`
-        returns.  A sequence-parallel trainer cannot sample
-        yet (`sample_pipeline`), so under `mesh.sp > 1` neither callback runs
-        and every `save_interval` step is checkpointed."""
+        returns.  A sequence-parallel or fully sharded trainer cannot sample
+        yet (`sample_pipeline`), so under `mesh.sp > 1` or `mesh.fsdp > 1`
+        neither callback runs and every `save_interval` step is checkpointed
+        (under fsdp every rank enters the gather, rank 0 writes)."""
         config = self.config
-        if self.sp is not None and (eval_callback or vis_callback):
-            log.warning("mesh.sp > 1: no FID or sample grids while training (sampling "
-                        "under sp is not ported); checkpoints are kept at every save_interval")
+        if (self.sp is not None or self.fsdp is not None) and (eval_callback or vis_callback):
+            log.warning("mesh.%s > 1: no FID or sample grids while training (sampling under "
+                        "it is not ported); checkpoints are kept at every save_interval",
+                        "sp" if self.sp is not None else "fsdp")
             eval_callback = vis_callback = None
         self.resume()
         stream = self.data_stream(start_step=self.state.step)
@@ -572,6 +678,9 @@ class Trainer:
                     if self.is_main:
                         eval_callback(self, step)
                     called = True
+                elif self.fsdp is not None:  # every rank enters the gather, rank 0 writes
+                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=False,
+                                             write=self.is_main)
                 elif self.is_main:
                     ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=False)
             if called:

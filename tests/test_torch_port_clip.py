@@ -14,13 +14,11 @@ tmp_path with a byte-level vocab.json / merges.txt:
 The CLIP score is held to JAX in test_torch_port_clip_score.py."""
 import os
 
-from torch_port_clip_common import CORPUS, text_config  # first: it turns TensorFlow off
+from torch_port_clip_common import write_text_dir  # first: it turns TensorFlow off
 
-import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
-from transformers import CLIPTextConfig, FlaxCLIPTextModel  # noqa: E402
 from transformers import CLIPTokenizer as HFTokenizer  # noqa: E402
 
 from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config  # noqa: E402
@@ -34,18 +32,6 @@ PROMPTS = ["A photo of a CAT sitting on the mat.", "Café naïve RÉSUMÉ, über
            "the dog's ball isn't red!!! ... 'hello' \"quoted\"", "東京タワーの写真 and 北京",
            "emoji 😀👍🏽 party 🎉🎉", "tabs\tand\nnewlines   nbsp ls", "x" * 200,
            "<|endoftext|> inside <|startoftext|>text", "I'M YOU'LL WE'D THEY'RE", ""]
-
-
-def write_text_dir(path, eos_kind):
-    """A directory holding a tiny CLIP text model both packages read: the Flax
-    weights, and the port's pytorch_model.bin carried from them."""
-    n = clip.write_synthetic_vocab(str(path), CORPUS, 64)
-    eos = n - 1 if eos_kind == "eos" else 2
-    model = FlaxCLIPTextModel(CLIPTextConfig(**text_config(n, eos)), seed=0)
-    model.save_pretrained(str(path))
-    params = jax.tree.map(np.asarray, model.params)
-    torch.save(clip.clip_text_state_dict(params), path / "pytorch_model.bin")
-    return str(path)
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,9 @@ workdir stays absent; and a fourth step, both ranks resuming from rank 0's
 checkpoint, equals the single process's fourth.  The processes have 120 s.
 
 Every other layout the port cannot run raises `NotImplementedError` naming
-ROADMAP Queue 1 entry 4, never training silently.
+ROADMAP Queue 1 entry 4, never training silently; `mesh.fsdp = 2` in one
+process raises `ValueError` (it needs two processes; FSDP itself is held in
+test_torch_port_fsdp_gloo.py).
 """
 import json
 import os
@@ -130,6 +132,10 @@ class _World:
 def test_layouts_the_port_cannot_run_raise(monkeypatch, mesh, world):
     if world > 1:
         _World(monkeypatch, world)
+    if "fsdp" in mesh:  # a layout the port runs, over enough processes
+        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
+            mesh_lib.from_mesh(mesh)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
         mesh_lib.from_mesh(mesh)
 
@@ -138,8 +144,39 @@ def test_layouts_the_port_cannot_run_raise(monkeypatch, mesh, world):
 def test_trainer_refuses_a_layout_before_training(tmp_path, field, value):
     config = _config(3)
     config.mesh[field] = value
+    if field == "fsdp":  # fsdp = 2 in one process
+        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
+            Trainer(config, str(tmp_path), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
         Trainer(config, str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("mesh,world,match", [
+    (dict(fsdp=4), 2, "fsdp = 4 needs 4 processes"),
+    (dict(fsdp=2), 3, "does not divide 3 processes"),
+    (dict(dp=3, fsdp=2), 4, "dp x fsdp = 6"),
+])
+def test_fsdp_layouts_the_world_cannot_hold_raise(monkeypatch, mesh, world, match):
+    _World(monkeypatch, world)
+    with pytest.raises(ValueError, match=match):
+        mesh_lib.from_mesh(mesh)
+
+
+@pytest.mark.parametrize("mesh", [dict(fsdp=2, sp=2), dict(fsdp=2, tp=2), dict(fsdp=2, pp=2)])
+def test_fsdp_beside_sp_tp_or_pp_raises(monkeypatch, mesh):
+    _World(monkeypatch, 4)
+    with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
+        mesh_lib.from_mesh(mesh)
+
+
+def test_fsdp_layout_follows_the_world(monkeypatch):
+    _World(monkeypatch, 4, rank=3)
+    hsdp = mesh_lib.from_mesh(dict(dp=-1, fsdp=2))
+    assert isinstance(hsdp, mesh_lib.FullyShardedDataParallel)
+    assert (hsdp.dp, hsdp.fsdp, hsdp.world_size, hsdp.rank, hsdp.is_main) == (2, 2, 4, 3, False)
+    assert hsdp.process_batch_slice(64) == slice(48, 64)  # the global rank over (dp, fsdp)
+    assert mesh_lib.from_mesh(dict(dp=1, fsdp=4)).dp == 1
 
 
 def test_the_layout_follows_the_world(monkeypatch):

@@ -26,6 +26,14 @@ UNET_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
 DDP_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "parallel.mesh", "data.loader", "cli", "train.trainer", "train.checkpoint",
     "train.state", "models.layers", "ops.attention", "models.uvit", "models.uvit_t2i")]
+# the modules of the data slice and FSDP (the COCO database, the native
+# loader, the extraction and conversion scripts, the sharding), which the
+# walk must reach
+DATA_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "data.mscoco", "data.native_loader", "parallel.sharding", "ops.kernels.build",
+    "scripts.extract_mscoco_feature", "scripts.extract_mscoco_stable_diffusion",
+    "scripts.extract_imagenet_feature", "scripts.extract_empty_feature",
+    "scripts.extract_test_prompt_feature", "scripts.convert_checkpoint")]
 # packages the port must not come to need: CLIP's tokenizer and weights are read
 # by its own code
 NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
@@ -43,6 +51,7 @@ print("PIXEL:", all(m in sys.modules for m in {PIXEL_MODULES!r}))
 print("EVAL:", all(m in sys.modules for m in {EVAL_MODULES!r}))
 print("UNET:", all(m in sys.modules for m in {UNET_MODULES!r}))
 print("DDP:", all(m in sys.modules for m in {DDP_MODULES!r}))
+print("DATA:", all(m in sys.modules for m in {DATA_MODULES!r}))
 print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
@@ -58,6 +67,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "EVAL: True" in out.stdout, out.stdout
     assert "UNET: True" in out.stdout, out.stdout
     assert "DDP: True" in out.stdout, out.stdout
+    assert "DATA: True" in out.stdout, out.stdout
     assert "LOADED: []" in out.stdout, out.stdout
 
 
@@ -68,3 +78,10 @@ def test_port_sources_name_no_jax_import():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 assert words[1].split(".")[0] not in FORBIDDEN, (path, line)
+
+
+def test_native_loader_source_is_the_ports_own():
+    """The port builds its own copy of the C++ loader, never `native/`'s."""
+    from panopticdiffusionmodels_torch.data import native_loader
+
+    assert native_loader.SOURCE.is_relative_to(ROOT / "panopticdiffusionmodels_torch")

@@ -134,6 +134,10 @@ def test_later_slices_raise(tmp_path, field, value, match):
         config[node][path[0]] = value
     else:
         config[node] = value
+    if field == "mesh.fsdp":  # ported since; one process cannot hold fsdp = 2
+        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
+            Trainer(config, str(tmp_path), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=match):
         Trainer(config, str(tmp_path), device="cpu")
 

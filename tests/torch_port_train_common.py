@@ -55,20 +55,21 @@ def jax_draws(key, batch, n_timesteps: int = 1000) -> dict:
     return {k: np.array(v) for k, v in dict(z=z, n=n, eps=eps, eps_m=eps_m).items()}
 
 
-def configure(config, use_checkpoint: bool, pretrained: str, mesh=None):
+def configure(config, use_checkpoint: bool, pretrained: str, mesh=None, nnet=None):
     config.nnet.use_checkpoint = use_checkpoint
+    config.nnet.update(nnet or {})
     config.pretrained = pretrained
     config.mesh.update(mesh or {})
     return config
 
 
 def jax_reference(workdir, steps, use_checkpoint=False, pretrained="", mesh=None,
-                  with_grads=True):
+                  with_grads=True, nnet=None):
     """(initial params, [per-step dict(grads, metrics, params, ema, draws)]);
-    `mesh` overrides the config's mesh fields, and `with_grads=False` skips
-    the separate gradient pass (no 'grads' entry)."""
+    `mesh` and `nnet` override the config's mesh and network fields, and
+    `with_grads=False` skips the separate gradient pass (no 'grads' entry)."""
     trainer = JaxTrainer(configure(jax_get_config("synthetic_tiny"), use_checkpoint,
-                                   pretrained, mesh), str(workdir))
+                                   pretrained, mesh, nnet), str(workdir))
     state = trainer.state
     init = to_port(state.params)
     grad_fn = jax.jit(jax.grad(trainer._loss, has_aux=True))
