@@ -10,7 +10,10 @@ one NVIDIA H100 and check their kernels; then data-parallel training over
 processes, every remat policy, `pallas_recompute`, image-only t2i training,
 Adam, sequence-parallel U-ViT training and asynchronous checkpoints; then the
 data pipeline (MS-COCO feature extraction, training through the native C++
-loader, checkpoint conversion) and fully sharded data parallelism.
+loader, checkpoint conversion) and fully sharded data parallelism; then
+the rest of distributed: tensor and pipeline parallelism, sequence
+parallelism beside data parallelism and at lengths that do not divide it,
+and sampling under each layout.
 
     python3 chip_smoke.py    # from the repository root, on a machine with the card
 
@@ -270,7 +273,31 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      26 kernel calls a step in each rank, each rank's bytes of parameters,
      gradients, moments and EMA against one process's (< 0.55), its step
      time (gloo copies through the host; not judged);
- 38. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 38. tensor parallelism: two processes on the one card over gloo at
+     mesh.tp = 2: synthetic_tiny in f32 with two heads, the gathered
+     parameters and EMA after 3 steps against one process (max absolute
+     difference < 1e-5); mscoco_uvit_small at batch 8, fine-tune mode, 2 +
+     5 steps through `fit` with exactly 26 + 26 kernel calls a step in each
+     rank at (8, 334 / 590, 4, 64), the share of the block parameters a
+     rank holds (about 0.5), the step time (gloo; not judged);
+ 39. pipeline parallelism, the same at mesh.pp = 2 (2 microbatches of 4):
+     exactly 12 x 2 forward and backward kernel calls a step on stage 0
+     (its 3 in- and 3 out-layers, two streams each) and 14 x 2 on stage 1
+     (the mid layer too); each stage's share of the block parameters;
+ 40. (a) sequence parallelism beside data parallelism: two processes on the
+     one card over gloo at mesh.sp = 2 'in_process', mesh.dp = 2:
+     synthetic_tiny in f32 on the plain ring against one process (< 1e-5),
+     then in bf16 with one head of 64 through the hop kernel, exactly 20
+     hop launches a step in each rank; (b) mscoco_uvit_small at mesh.sp = 4
+     in process, where the streams' 334 and 590 tokens do not divide 4:
+     one step at batch 8 through the hop kernel against sp = 1 through
+     kernels 1 and 2 (loss < 5e-3, whole gradient < 2e-2), 104 hop
+     launches, each with a shard whose pad keys are masked (nvalid < Lk);
+ 41. sampling under fsdp, tp and pp: the 6-step samples of 4 CLIP contexts
+     that every rank of phases 37-39 drew from its trainer's EMA (rank 0's)
+     against one process sampling from the same EMA (images < 2e-2, masks
+     < 5e-2);
+ 42. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -338,21 +365,24 @@ PEAK_BYTES = 3.35e12
 # past 4 x 64) and its training at batch 128 (with lse).
 # The UNet-family slice: U-ViT-H/2 serving at ImageNet-256 (CFG 2x32, 16
 # heads of 72) on the mma.sync loop.
+# The rest of distributed: the panoptic training shapes at tp = 2, H/2 = 4
+# heads on each rank.
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
                  (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
                  (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72),
-                 (32, 334, 12, 64)]
+                 (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
 PIXEL_SHAPES = KERNEL_SHAPES[7:10]
 HUGE_SHAPE = KERNEL_SHAPES[10]
 MID_TRAIN_SHAPE = KERNEL_SHAPES[11]  # mscoco_uvit_mid training at batch 32, with lse
+TP_SHAPES = KERNEL_SHAPES[12:14]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
               (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64),
-              (32, 258, 16, 72), (32, 334, 12, 64)]
+              (32, 258, 16, 72), (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
 # row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
 # training at batch 128 (phase 3's last row with lse, and the backward).
@@ -360,6 +390,7 @@ LATENT_TRAIN_SHAPE = BWD_SHAPES[6]
 CIFAR_TRAIN_SHAPE = BWD_SHAPES[7]
 HUGE_TRAIN_SHAPE = BWD_SHAPES[8]  # U-ViT-H/2's latent_discrete step at batch 32
 MID_BWD_SHAPE = BWD_SHAPES[9]  # mscoco_uvit_mid's image-only step at batch 32
+TP_BWD_SHAPES = BWD_SHAPES[10:12]  # the panoptic step at tp = 2
 TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
@@ -514,6 +545,19 @@ COCO_BLOCK, COCO_ROUNDS, COCO_HOST_BATCHES = 5, 2, 20
 # phase 31b's, in f32, then mscoco_uvit_small at the global batch of 64 for 2 +
 # FSDP_TIMED steps.
 FSDP_WORLD, FSDP_TIMED = 2, 5
+# The rest of distributed (phases 38-41), two gloo processes on the one card
+# each: mscoco_uvit_small at batch 8, 2 + MESH_TIMED steps through `fit`, at
+# tp = 2 (26 + 26 kernel calls a step in each rank, 4 heads of 64) and at pp
+# = 2 (PP_MICRO microbatches; stage s runs its 2k layers, the last stage 2k + 1,
+# two streams each, once per microbatch: 12 and 14 calls a microbatch);
+# synthetic_tiny at sp = 2 'in_process' beside dp = 2 (5 blocks x 2 streams x
+# 2 hops a step); mscoco_uvit_small at sp = 4 in process, 26 ring attentions
+# x 4 hops; every rank's 6-step samples of 4 contexts.
+MESH_WORLD, MESH_BATCH, MESH_TIMED = 2, 8, 5
+PP_MICRO, PP_STAGE_CALLS = 2, (12, 14)
+TINY_SP_HOPS = 20
+SP4, SP4_HOPS = 4, 26 * 4
+MESH_SAMPLES, MESH_SAMPLE_STEPS = 4, 6
 
 
 def zero_counts() -> None:
@@ -1578,12 +1622,15 @@ def phase_train_profile(trainer, step_s, tag):
                    f"train step (batch {trainer.config.train.batch_size})", step_s)
 
 
-def make_trainer(name, tmp, mesh=None, pretrained=True, features=None):
+def make_trainer(name, tmp, mesh=None, pretrained=True, features=None, batch=None):
     """`Trainer` for a zoo config at full width and depth in fine-tune mode (a
     seeded reference-format .pth, so the image stream is frozen), or from the
     seeded initialisation, on synthetic coco data at the config's shapes, or
-    on the config's own dataset read from the feature root `features`."""
+    on the config's own dataset read from the feature root `features`; at
+    the config's batch size or `batch`."""
     config = get_config(name)
+    if batch:
+        config.train.batch_size = batch
     h, w, c = config.z_shape
     m = config.nnet.mask_size
     if features:
@@ -2854,7 +2901,8 @@ def fsdp_child(rank: int, port: int, tmp: str) -> None:
     gathered parameters and EMA written to `tmp/fsdp_tiny{rank}.pt`; (b)
     mscoco_uvit_small at the global batch of 64 (32 a rank), fine-tune
     mode, 2 + FSDP_TIMED steps through `fit` with the launches counted, and
-    the bytes it holds of the train state, to `tmp/fsdp_small{rank}.json`."""
+    the bytes it holds of the train state, to `tmp/fsdp_small{rank}.json`;
+    then phase 41's samples (`mesh_samples`)."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -2884,6 +2932,7 @@ def fsdp_child(rank: int, port: int, tmp: str) -> None:
             json.dump(dict(launches=read_counts(), step_ms=wall / FSDP_TIMED * 1e3,
                            losses=[train_loss(m) for m in history], held=state_bytes(small),
                            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9), f)
+        mesh_samples(small, tmp, "fsdp")
     finally:
         dist.destroy_process_group()
 
@@ -2931,6 +2980,244 @@ def phase_fsdp(tmp: str) -> dict:
     assert worst < 1e-5, worst
     assert all(x < 0.55 for x in shares), shares
     return dict(tiny_max_abs=worst, small=smalls)
+
+
+def sample_inputs():
+    """Phase 41's request: 4 CLIP contexts, the initial latents and mask
+    bits, seeded on the host (the same in every process)."""
+    rng = np.random.default_rng(41)
+    return (rng.standard_normal((MESH_SAMPLES, 77, 768)).astype(np.float32),
+            rng.standard_normal((MESH_SAMPLES, 32, 32, 4)).astype(np.float32),
+            rng.standard_normal((MESH_SAMPLES, 64, 64, 8)).astype(np.float32))
+
+
+def mesh_samples(trainer, tmp: str, mode: str) -> None:
+    """Every rank samples the 6-step request from its trainer's EMA (the
+    sampler's gathers, rings and sends need them all); rank 0 writes the
+    samples and the whole EMA (a gather every rank enters) for phase 41."""
+    out = trainer.build_sample_fn(MESH_SAMPLE_STEPS)(*sample_inputs())
+    place = trainer.placement  # the EMA alone, gathered whole
+    ema = {n: place.whole(n, e) for n, e in trainer.state.ema.items()}
+    ema = place.merge_stages(ema)
+    if trainer.is_main:
+        torch.save(dict(samples=[t.float().cpu() for t in out],
+                        ema={n: e.cpu() for n, e in ema.items()}),
+                   os.path.join(tmp, f"{mode}_samples.pt"))
+
+
+def block_share(trainer, name: str) -> float:
+    """The share of the whole network's block parameters (both streams' blocks
+    and zero convs) that this rank holds."""
+    kw = dict(get_config(name).nnet)
+    with torch.device("meta"):
+        whole = get_nnet(kw.pop("name"), **kw)
+    blocks = lambda n: "block" in n or n.startswith("zero_convs")  # noqa: E731
+    held = sum(local(p).numel() for n, p in trainer.state.params.items() if blocks(n))
+    return held / sum(p.numel() for n, p in whole.named_parameters() if blocks(n))
+
+
+def mesh_tiny_config(mode: str):
+    """synthetic_tiny in f32 under a layout: two heads under tp (its split
+    keeps whole heads), the plain ring under sp."""
+    config = tiny_f32_config()
+    if mode in ("tp", "one_tp"):
+        config.nnet.num_heads = 2
+    if mode == "spdp":
+        config.nnet.attn_impl = "ring_plain"
+    config.mesh.update(dict(tp=dict(tp=MESH_WORLD), pp=dict(pp=MESH_WORLD),
+                            spdp=dict(sp=2, sp_mode="in_process", dp=MESH_WORLD),
+                            one=dict(), one_tp=dict())[mode])
+    return config
+
+
+def mesh_child(rank: int, port: int, tmp: str, mode: str) -> None:
+    """Phases 38 ('tp'), 39 ('pp') and 40a ('spdp'): one of two processes on
+    the one card over gloo: (a) synthetic_tiny in f32 under the layout, 3
+    steps through `fit`, the whole parameters and EMA to
+    `tmp/{mode}_tiny{rank}.pt`; (b) 'tp' / 'pp': mscoco_uvit_small at batch
+    8, fine-tune mode, 2 + MESH_TIMED steps through `fit` with the launches
+    counted, the share of the block parameters held, then phase 41's
+    samples; 'spdp': synthetic_tiny in bf16 (one head of 64) through the
+    hop kernel, 1 + 3 steps with the hops counted; to
+    `tmp/{mode}_small{rank}.json`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=MESH_WORLD, rank=rank)
+    try:
+        with no_tf32():
+            tiny = Trainer(mesh_tiny_config(mode), os.path.join(tmp, f"{mode}_tiny_wd{rank}"),
+                           device="cuda:0")
+            assert tiny.is_main == (rank == 0)
+            tiny.fit()
+        whole = tiny.state.state_dict()
+        torch.save(dict(params={n: p.cpu() for n, p in whole["params"].items()},
+                        ema={n: p.cpu() for n, p in whole["ema_params"].items()},
+                        step=tiny.state.step), os.path.join(tmp, f"{mode}_tiny{rank}.pt"))
+        del tiny, whole
+        if mode == "spdp":
+            config = tiny_cuda_config()
+            config.mesh.update(sp=2, sp_mode="in_process", dp=MESH_WORLD)
+            config.train.save_interval = 0
+            small = Trainer(config, os.path.join(tmp, f"spdp_bf16_wd{rank}"), device="cuda:0")
+            small.fit(max_steps=1)
+            timed, extra = TINY_STEPS, {}
+        else:
+            small = make_trainer("mscoco_uvit_small", os.path.join(tmp, f"{mode}_small{rank}"),
+                                 mesh={mode: MESH_WORLD}, batch=MESH_BATCH)
+            small.fit(max_steps=2)
+            timed, extra = MESH_TIMED, dict(block_share=block_share(small, "mscoco_uvit_small"))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        history = small.fit(max_steps=small.state.step + timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        result = dict(launches=read_counts(), step_ms=wall / timed * 1e3, steps=timed,
+                      losses=[train_loss(m) for m in history], coords=small.dp.coords,
+                      max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+        with open(os.path.join(tmp, f"{mode}_small{rank}.json"), "w") as f:
+            json.dump(result, f)
+        if mode != "spdp":
+            mesh_samples(small, tmp, mode)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(tmp: str) -> dict:
+    """38-40a: the children of each layout (two gloo processes on the one
+    card, NCCL refusing two ranks on one card), all started together: each
+    layout's synthetic_tiny against one process (f32, TF32 off, max absolute
+    difference < 1e-5), the launches a step in each rank, the block share a
+    rank holds and the step time (gloo through the host: recorded, not
+    judged)."""
+    calls = []
+    for mode in ("tp", "pp", "spdp"):
+        port = free_port()
+        calls += [f"mesh_child({r}, {port}, {tmp!r}, {mode!r})" for r in range(MESH_WORLD)]
+    run_children(calls, timeout=900)
+    out = {}
+    for mode, tag in (("tp", "38"), ("pp", "39"), ("spdp", "40a")):
+        with no_tf32():
+            single = Trainer(mesh_tiny_config("one_tp" if mode == "tp" else "one"),
+                             os.path.join(tmp, f"{mode}_tiny_single"), device="cuda")
+            if mode == "tp":
+                assert single.nnet.in_blocks[0].attn.num_heads == 2
+            single.fit()
+        worst = 0.0
+        for r in range(MESH_WORLD):
+            got = torch.load(os.path.join(tmp, f"{mode}_tiny{r}.pt"), weights_only=True)
+            assert got["step"] == TINY_STEPS
+            for name, p in single.state.params.items():
+                worst = max(worst,
+                            float((got["params"][name] - p.detach().cpu()).abs().max()),
+                            float((got["ema"][name] - single.state.ema[name].cpu()).abs().max()))
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(tmp, f"{mode}_small{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r, res in enumerate(ranks):
+            if mode == "spdp":
+                calls = {"attention_hop": TINY_SP_HOPS}
+            elif mode == "tp":
+                calls = {"fused_attention_qkv": LAUNCHES_PER_STEP,
+                         "fused_attention_qkv_vjp": LAUNCHES_PER_STEP}
+            else:
+                n = PP_MICRO * PP_STAGE_CALLS[res["coords"]["pp"]]
+                calls = {"fused_attention_qkv": n, "fused_attention_qkv_vjp": n}
+            want = {k: calls.get(k, 0) * res["steps"] for k in res["launches"]}
+            assert res["launches"] == want, (mode, r, res["launches"], want)
+            assert np.isfinite(res["losses"]).all(), res["losses"]
+        shares = [r.get("block_share") for r in ranks]
+        print(f"[{tag}] {mode} over two gloo processes on one card: synthetic_tiny (f32) "
+              f"parameters and EMA after {TINY_STEPS} steps vs one process: max abs diff "
+              f"{worst:.2e} (bar 1e-5); "
+              + ("synthetic_tiny bf16 sp=2 in process x dp=2" if mode == "spdp" else
+                 f"mscoco_uvit_small B={MESH_BATCH}")
+              + f": launches {[r['launches'] for r in ranks]} over {ranks[0]['steps']} steps, "
+              f"step {[round(r['step_ms'], 1) for r in ranks]} ms (gloo through the host, not "
+              f"judged), block parameters held {shares}, peak allocated "
+              f"{[round(r['max_memory_allocated_gb'], 3) for r in ranks]} GB ({card_line()})")
+        assert worst < 1e-5, (mode, worst)
+        if mode == "tp":
+            assert all(0.45 < x < 0.6 for x in shares), shares
+        if mode == "pp":
+            assert abs(sum(shares) - 1.0) < 1e-9 and all(0.3 < x < 0.7 for x in shares), shares
+        out[mode] = ranks
+        del single
+    return out
+
+
+def phase_uneven_sp(tmp: str) -> dict:
+    """40b: mscoco_uvit_small at sp = 4 in process, where the image stream's
+    334 and the mask stream's 590 tokens do not divide 4 (84 a shard, the
+    last holding 82; 148 and 146): one step at batch 8 through the hop kernel
+    against sp = 1 through kernels 1 and 2 on the same weights, batch and
+    draws; every hop launch, counted, has rows whose keys' shard holds pad
+    keys (nvalid < Lk)."""
+    from panopticdiffusionmodels_torch.ops import ring_attention
+
+    trainer = make_trainer("mscoco_uvit_small", tmp, mesh=dict(sp=SP4, sp_mode="in_process"),
+                           batch=MESH_BATCH)
+    batch, noise = parity_batch(trainer, MESH_BATCH)
+    seen = []
+    hop = ring_attention.attention_hop
+
+    def counted(q, kv, heads, scale, nvalid):
+        seen.append((kv.shape[1], int(nvalid.min()), int(nvalid.max())))
+        return hop(q, kv, heads, scale, nvalid)
+
+    out = {}
+    ring_attention.attention_hop = counted
+    try:
+        for arm, sp, impl in (("sp4", trainer.sp, "ring"), ("sp1", None, "auto")):
+            set_sp(trainer.nnet, sp)
+            set_attn_impl(trainer.nnet, impl)
+            zero_counts()
+            metrics = trainer.loss_and_grads(batch, noise)
+            torch.cuda.synchronize()
+            out[arm] = (train_loss(metrics), grads_vector(trainer), read_counts())
+    finally:
+        ring_attention.attention_hop = hop
+    short = sum(lo < lk for lk, lo, _ in seen)
+    assert out["sp4"][2] == {k: SP4_HOPS if k == "attention_hop" else 0
+                             for k in out["sp4"][2]}, out["sp4"][2]
+    assert len(seen) == SP4_HOPS and short == SP4_HOPS, (len(seen), short)
+    assert sorted({(lk, lo) for lk, lo, _ in seen}) == [(84, 82), (148, 146)], set(seen)
+    parity = compare_steps(out["sp4"][:2], out["sp1"][:2], "40b",
+                           f"mscoco_uvit_small sp={SP4} (334 / 590 tokens padded to 336 / 592, "
+                           f"hop kernel) vs sp=1 (kernels 1 and 2), B={MESH_BATCH}")
+    print(f"[40b] {len(seen)} hop launches, {short} with nvalid < Lk (Lk, min nvalid): "
+          f"{sorted({(lk, lo) for lk, lo, _ in seen})} ({card_line()})")
+    return dict(parity, hops=len(seen), short_hops=short, launches=out["sp4"][2])
+
+
+def phase_mesh_sampling(tmp: str) -> dict:
+    """41: one process samples phase 41's request from the EMA that rank 0
+    of each layout's children gathered; their samples (every rank sampled)
+    against it: images < 2e-2, masks < 5e-2 (the request bar)."""
+    trainer = make_trainer("mscoco_uvit_small", os.path.join(tmp, "sampling_single"),
+                           batch=MESH_BATCH)
+    fn = trainer.build_sample_fn(MESH_SAMPLE_STEPS)
+    out = {}
+    for mode in ("fsdp", "tp", "pp"):
+        got = torch.load(os.path.join(tmp, f"{mode}_samples.pt"), weights_only=True)
+        with torch.no_grad():
+            for name, e in trainer.state.ema.items():
+                e.copy_(got["ema"][name])
+        zero_counts()
+        ref = fn(*sample_inputs())
+        torch.cuda.synchronize()
+        launches = read_counts()["fused_attention_qkv"]
+        rels = [rel_dev(a.float().cpu(), b.float().cpu()) for a, b in zip(got["samples"], ref)]
+        print(f"[41] sampling under {mode} (every rank sampled; rank 0's) vs one process from "
+              f"the same EMA, {MESH_SAMPLES} contexts x {MESH_SAMPLE_STEPS} steps: images rel "
+              f"{rels[0]:.2e} (bar 2e-2), mask rel {rels[1]:.2e} (bar 5e-2); one process's "
+              f"kernel-1 launches {launches}")
+        assert rels[0] < 2e-2 and rels[1] < 5e-2, (mode, rels)
+        out[mode] = dict(images_rel=rels[0], mask_rel=rels[1])
+    return out
 
 
 def main() -> int:
@@ -3046,6 +3333,17 @@ def main() -> int:
         phase_convert(tmp)
         torch.cuda.empty_cache()
         fsdp = phase_fsdp(tmp)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = phase_mesh(tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        uneven = phase_uneven_sp(tmp)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        phase_mesh_sampling(tmp)
+        print(f"[38-41] wall: phases 38-40a {t1 - t0:.1f} s, 40b {t2 - t1:.1f} s, 41 "
+              f"{time.perf_counter() - t2:.1f} s")
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -3092,7 +3390,13 @@ def main() -> int:
                           f"native-loader training from extracted features ({TIMED_STEPS} "
                           "steps)": native_counts["fused_attention_qkv"],
                           f"FSDP rank 0, mscoco_uvit_small ({FSDP_TIMED} steps)":
-                              fsdp["small"][0]["launches"]["fused_attention_qkv"]},
+                              fsdp["small"][0]["launches"]["fused_attention_qkv"],
+                          f"tp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["tp"][0]["launches"]["fused_attention_qkv"],
+                          f"pp = 2 stage 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["pp"][0]["launches"]["fused_attention_qkv"],
+                          f"pp = 2 stage 1, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["pp"][1]["launches"]["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -3102,7 +3406,8 @@ def main() -> int:
             f"{list(IMAGENET_SHAPE)}, the pixel-space shapes the rows "
             f"{[list(x) for x in PIXEL_SHAPES]}, U-ViT-H/2 serving the row "
             f"{list(HUGE_SHAPE)}, mscoco_uvit_mid training (with lse) the row "
-            f"{list(MID_TRAIN_SHAPE)}; the fused arm of the A/B chain launches "
+            f"{list(MID_TRAIN_SHAPE)}, a tp = 2 rank's training the rows "
+            f"{[list(x) for x in TP_SHAPES]}; the fused arm of the A/B chain launches "
             "this kernel inside fused_ln_qkv_attention, which counts it there",
         shapes=rows)
     train_rows = [r for r in bwd_rows if tuple(r["shape"]) in TRAIN_SHAPES]
@@ -3130,7 +3435,13 @@ def main() -> int:
                           f"native-loader training from extracted features ({TIMED_STEPS} "
                           "steps)": native_counts["fused_attention_qkv_vjp"],
                           f"FSDP rank 0, mscoco_uvit_small ({FSDP_TIMED} steps)":
-                              fsdp["small"][0]["launches"]["fused_attention_qkv_vjp"]},
+                              fsdp["small"][0]["launches"]["fused_attention_qkv_vjp"],
+                          f"tp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["tp"][0]["launches"]["fused_attention_qkv_vjp"],
+                          f"pp = 2 stage 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["pp"][0]["launches"]["fused_attention_qkv_vjp"],
+                          f"pp = 2 stage 1, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              mesh["pp"][1]["launches"]["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
@@ -3139,7 +3450,8 @@ def main() -> int:
             "dual-stream layer runs per train step; one call is two CUDA kernels; the "
             f"U-ViT-L/2 training shape is the row {list(LATENT_TRAIN_SHAPE)}, the CIFAR-10 "
             f"one {list(CIFAR_TRAIN_SHAPE)}, the U-ViT-H/2 one {list(HUGE_TRAIN_SHAPE)}, the "
-            f"mscoco_uvit_mid one {list(MID_BWD_SHAPE)}",
+            f"mscoco_uvit_mid one {list(MID_BWD_SHAPE)}, a tp = 2 rank's "
+            f"{[list(x) for x in TP_BWD_SHAPES]}",
         shapes=bwd_rows)
     hop_main = [r for r in hop_rows if tuple(r["shape"][:3]) in HOP_MAIN_SHAPES]
     per_hop_pair = {k: sum(r[k] for r in hop_main) for k in ("ms", "plain_ms", "bound_ms",
@@ -3151,7 +3463,11 @@ def main() -> int:
         launches=sp_counts["attention_hop"],
         launches_by_path={f"sp training ({TIMED_STEPS} steps)": sp_counts["attention_hop"],
                           f"sp U-ViT-L/2 latent_discrete training ({SP_UVIT_TIMED} steps)":
-                              sp_uvit_counts["attention_hop"]},
+                              sp_uvit_counts["attention_hop"],
+                          f"sp = 2 in process x dp = 2 rank 0, synthetic_tiny ({TINY_STEPS} "
+                          "steps)": mesh["spdp"][0]["launches"]["attention_hop"],
+                          f"sp = 4 mscoco_uvit_small step, every hop with nvalid < Lk "
+                          f"(batch {MESH_BATCH})": uneven["hops"]},
         max_abs_err=max(r["max_abs_err"] for r in hop_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in hop_rows),
         kernel_ms=per_hop_pair["ms"], **per_hop_pair,

@@ -8,8 +8,8 @@ a config from the port's zoo or a python file with `get_config()`,
 `--config.` overrides (python literals, else strings), and a workdir
 derived from the config name and the overridden fields.  `train` runs
 `Trainer.fit` with the FID-gated checkpoint callback and the sample-grid
-callback (neither runs under `mesh.sp > 1`, which cannot sample yet: it
-checkpoints at every save_interval); `eval` samples `config.sample.n_samples` into workdir/samples (and
+callback (under several processes every rank samples, rank 0 writes);
+`eval` samples `config.sample.n_samples` into workdir/samples (and
 workdir/mask) and takes FID when the stats file and the Inception weights
 (`--inception`, by default `evaluation/fid.py::INCEPTION_WEIGHTS`) exist;
 `sample` writes one mini-batch.  Weights to evaluate: `--config.nnet_path=<reference .pth or a
@@ -26,10 +26,23 @@ mesh.fsdp processes; with dp = -1 the other processes are replicas, HSDP):
     torchrun --nproc_per_node=4 -m panopticdiffusionmodels_torch train \
         --config=mscoco_uvit_small --config.mesh.fsdp=2
 
-Sequence-parallel training on several cards, one process per sp rank:
+Sequence-parallel training on several cards, one process per sp rank
+(beside data parallelism: dp = -1 takes the other processes):
 
     torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \
         --config=mscoco_uvit_small_512 --config.mesh.sp=2
+
+Tensor parallelism (each block's qkv / MLP split per head over tp ranks)
+and the boomerang pipeline (pp stages of the U-ViT's blocks), with the
+other processes data parallel:
+
+    torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \
+        --config=mscoco_uvit_small --config.mesh.tp=2
+    torchrun --nproc_per_node=2 -m panopticdiffusionmodels_torch train \
+        --config=mscoco_uvit_small --config.mesh.pp=2 [--config.train.pp_microbatches=4]
+
+The world is laid out as JAX's mesh, (pp, dp, fsdp, sp, tp) row-major
+(`parallel/mesh.py`).
 
 Under torchrun (WORLD_SIZE set) the command joins the process group first:
 NCCL with each process on `cuda:LOCAL_RANK`, or gloo with `--device=cpu`.

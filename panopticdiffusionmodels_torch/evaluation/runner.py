@@ -32,7 +32,7 @@ from ..diffusion.analog_bits import ints_to_analog
 from ..diffusion.math import mos
 from ..train import checkpoint as ckpt_lib
 from ..train.trainer import Trainer, step_seed
-from ..utils.misc import to_numpy
+from ..utils.misc import amortize, to_numpy
 from ..utils.weights import load_torch_state_dict, reference_nnet_state_dict
 from .fid import INCEPTION_WEIGHTS, fid_given_paths
 from .sampler_io import mask_ids, sample2dir, save_grid
@@ -263,10 +263,23 @@ def sample_only(config, workdir: str, inception_path: str = INCEPTION_WEIGHTS, d
                     inception_path=inception_path, device=device)
 
 
+def _agree(trainer: Trainer, value):
+    """Rank 0's `value` on every rank of a multi-process trainer."""
+    if trainer.dp is None:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def make_vis_callback(n_images: int = 16, sample_steps: int = 50):
     """Periodic sample-grid writer (the reference's wandb image grids,
     `train.py:166-178`, `train_t2i_discrete.py:637-689`): writes
-    workdir/train_samples/{step}.png (+ {step}_mask.png for panoptic)."""
+    workdir/train_samples/{step}.png (+ {step}_mask.png for panoptic).
+    Every rank of a multi-process trainer samples the same grid; rank 0
+    writes it."""
     cache = {}
 
     def callback(trainer: Trainer, step: int):
@@ -277,7 +290,6 @@ def make_vis_callback(n_images: int = 16, sample_steps: int = 50):
         g = torch.Generator(device=trainer.device).manual_seed(
             step_seed(config.seed + 99, step))
         out_dir = os.path.join(trainer.workdir, "train_samples")
-        os.makedirs(out_dir, exist_ok=True)
         if trainer.task == "t2i_discrete":
             test = trainer.dataset.get_split("test", labeled=True)
             cond = np.stack([np.asarray(test[i][1]) for i in range(n)])
@@ -289,6 +301,9 @@ def make_vis_callback(n_images: int = 16, sample_steps: int = 50):
             cond = None
         z, m0 = _draw(trainer, n, g)
         out = cache["fn"](cond, z, m0, generator=g)
+        if not trainer.is_main:
+            return
+        os.makedirs(out_dir, exist_ok=True)
         if isinstance(out, tuple):
             samples, pred_mask = out
             colors = color_map(mask_ids(pred_mask, config.nnet.get("mask_bits", 8)))
@@ -309,35 +324,43 @@ def make_fid_gated_callback(n_samples: Optional[int] = None,
     `train.py:182-196`, `train_t2i_discrete.py:694-710`): every
     save_interval, sample + score, and keep the checkpoint only when FID
     improves; without the FID assets, save every checkpoint and sample
-    nothing."""
+    nothing.  Every rank of a multi-process trainer samples and enters the
+    checkpoint's gathers; rank 0 writes the samples and the checkpoint,
+    computes FID and decides."""
     best = {"fid": None}
     cache: dict = {}  # one sampler reused across eval rounds
 
     def callback(trainer: Trainer, step: int):
         config = trainer.config
         ckpt_lib.wait_for_saves()  # the last round's write is on disk before this one decides
-        if not _fid_ready(trainer, inception_path):
+        if not _agree(trainer, _fid_ready(trainer, inception_path)):
             log.info("FID assets missing; saving ungated checkpoint")
-            ckpt_lib.save_checkpoint(trainer.ckpt_root, trainer.state)
+            trainer.save_checkpoint()
             return {}
         n = n_samples or config.sample.n_samples
         bs = config.sample.mini_batch_size
         sample_dir = os.path.join(trainer.workdir, "samples")
         sample_fn, use_panoptic = make_eval_sample_fn(trainer, config.sample.sample_steps, bs,
                                                       cache=cache)
-        metrics = sample2dir(sample_dir, n, bs, sample_fn,
-                             unpreprocess_fn=trainer.dataset.unpreprocess,
-                             use_panoptic=use_panoptic,
-                             mask_path=os.path.join(trainer.workdir, "mask"),
-                             mask_bits=config.nnet.get("mask_bits", 8))
-        fid = _score_fid(trainer, sample_dir, trainer.workdir, n, metrics, step=step,
-                         inception_path=inception_path)
-        log.info(f"eval@{step}: {metrics}")
+        fid, metrics = None, {}
+        if trainer.is_main:
+            metrics = sample2dir(sample_dir, n, bs, sample_fn,
+                                 unpreprocess_fn=trainer.dataset.unpreprocess,
+                                 use_panoptic=use_panoptic,
+                                 mask_path=os.path.join(trainer.workdir, "mask"),
+                                 mask_bits=config.nnet.get("mask_bits", 8))
+            fid = _score_fid(trainer, sample_dir, trainer.workdir, n, metrics, step=step,
+                             inception_path=inception_path)
+            log.info(f"eval@{step}: {metrics}")
+        else:  # the same batches, for the collectives; rank 0 writes them
+            for _ in amortize(n, bs):
+                sample_fn(bs)
+        fid = _agree(trainer, fid)
         if fid is None or best["fid"] is None or fid <= best["fid"]:
             if fid is not None:
                 best["fid"] = fid
             log.info(f"saving best checkpoint at step {step}")
-            ckpt_lib.save_checkpoint(trainer.ckpt_root, trainer.state)
+            trainer.save_checkpoint()
         return metrics
 
     return callback

@@ -92,15 +92,15 @@ class _Attn(nn.Module):
         self.to_out = nn.Linear(dim, dim)
 
     def forward(self, x, context=None):
-        b, l, c = x.shape
+        b, l = x.shape[:2]
         ctx = x if context is None else context
 
-        def split(t):
-            return t.reshape(b, -1, self.num_heads, c // self.num_heads).transpose(1, 2)
+        def split(t):  # the heads this module holds (H/tp of them under tp)
+            return t.reshape(b, -1, self.num_heads, t.shape[-1] // self.num_heads).transpose(1, 2)
 
         out = multi_head_attention(split(self.to_q(x)), split(self.to_k(ctx)),
                                    split(self.to_v(ctx)), impl="xla")
-        return self.to_out(out.transpose(1, 2).reshape(b, l, c))
+        return self.to_out(out.transpose(1, 2).reshape(b, l, -1))
 
 
 class BasicTransformerBlock(nn.Module):

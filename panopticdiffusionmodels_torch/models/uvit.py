@@ -12,10 +12,13 @@ reference's parameter names (`libs/uvit.py`) and NCHW inputs:
 > 0 puts a label token before the time token (two extras).  Blocks are
 unrolled; `utils/weights.py::uvit_state_dict` unstacks the JAX package's
 scanned layout.  `sp`, a sequence-parallel context (`parallel/mesh.py`),
-shards the token stream after the embeddings and gathers it before the
+shards the token stream after the embeddings (padded at its end to a
+multiple of sp, the pad keys masked in the ring) and gathers it before the
 head, with `attn_impl='ring'`, as JAX's `token_sharding` constrains the
-tokens at every block boundary (`models/uvit.py:130-190`).  The JAX stage
-split for pipeline parallelism belongs to a later distributed slice.
+tokens at every block boundary (`models/uvit.py:130-190`).  `forward` is
+`head(trunk(embed(...)))`, JAX's `stage="embed"` / `stage="head"` split
+(`models/uvit.py:93, 131`); `parallel/pipeline.py` runs the trunk's layers
+(`in_layer`, `mid_layer`, `out_layer`) over pipeline stages.
 """
 from __future__ import annotations
 
@@ -88,12 +91,13 @@ class UViT(nn.Module):
         if num_classes > 0:
             nn.init.trunc_normal_(self.label_emb.weight, std=0.02)
 
-    def forward(self, x, timesteps, y=None):
-        """x (B, C, h, w); timesteps (B,); y (B,) int labels for a
-        class-conditional model.  Returns (B, C, h, w)."""
+    def embed(self, x, timesteps, y=None):
+        """The stage before the blocks (JAX `stage="embed"`): (carry, ctx),
+        carry the token stream as a 1-tuple (this rank's shard under sp),
+        ctx what `head` needs."""
         dt = self.pos_embed.dtype
         x = self.patch_embed(x.to(dt))
-        l = x.shape[1]
+        ctx = dict(l=x.shape[1])
         t_emb = timestep_embedding(timesteps, x.shape[-1])
         x = torch.cat([self.time_embed(t_emb.to(dt)).to(x.dtype)[:, None, :], x], dim=1)
         if self.num_classes > 0:
@@ -101,21 +105,48 @@ class UViT(nn.Module):
                 raise ValueError("class-conditional UViT: labels y are required")
             x = torch.cat([self.label_emb(y)[:, None, :], x], dim=1)
         x = x + self.pos_embed
+        ctx["tokens"] = x.shape[1]
         if self.sp is not None:  # this rank's token shard through the blocks
-            self.sp.check_tokens(x.shape[1], "UViT tokens")
+            self.sp.set_counts(self.sp.padded(x.shape[1]),
+                               self.sp.contiguous_counts(x.shape[1]))
             x = self.sp.shard(x)
+        return (x,), ctx
 
+    def in_layer(self, i, carry, ctx):
+        """In-block i: (carry, the skip it leaves)."""
+        x = self.in_blocks[i](carry[0])
+        return (x,), x
+
+    def mid_layer(self, carry, ctx):
+        return (self.mid_block(carry[0]),)
+
+    def out_layer(self, i, carry, skip, ctx):
+        """Out-block i on the skip of in-block depth/2 - 1 - i."""
+        return (self.out_blocks[i](carry[0], skip),)
+
+    def trunk(self, carry, ctx):
+        """The blocks: in-blocks (skips pushed), mid, out-blocks (popped)."""
         skips = []
-        for blk in self.in_blocks:
-            x = blk(x)
-            skips.append(x)
-        x = self.mid_block(x)
-        for blk in self.out_blocks:
-            x = blk(x, skips.pop())
+        for i in range(len(self.in_blocks)):
+            carry, skip = self.in_layer(i, carry, ctx)
+            skips.append(skip)
+        carry = self.mid_layer(carry, ctx)
+        for i in range(len(self.out_blocks)):
+            carry = self.out_layer(i, carry, skips.pop(), ctx)
+        return carry
 
+    def head(self, carry, ctx):
+        """The stage after the blocks (JAX `stage="head"`)."""
+        x = carry[0]
         if self.sp is not None:
-            x = self.sp.gather(x)
+            x = self.sp.gather(x, ctx["tokens"])
         x = self.decoder_pred(self.norm(x))
-        assert x.shape[1] == self.extras + l
+        assert x.shape[1] == self.extras + ctx["l"]
         x = unpatchify(x[:, self.extras:], self.in_chans)
         return x if self.final_layer is None else self.final_layer(x)
+
+    def forward(self, x, timesteps, y=None):
+        """x (B, C, h, w); timesteps (B,); y (B,) int labels for a
+        class-conditional model.  Returns (B, C, h, w)."""
+        carry, ctx = self.embed(x, timesteps, y)
+        return self.head(self.trunk(carry, ctx), ctx)

@@ -20,10 +20,17 @@ device there, and `utils/weights.py` unstacks it.  `use_checkpoint` /
 
 Sequence parallelism (`sp`, a `parallel.mesh` context, with
 `attn_impl='ring'`): after the embeddings each stream is sharded on its own,
-x (img_len tokens) and m (num_patches tokens), and both are gathered again
-before `norm` and the heads, whose unpatchify and 3x3 convs cross tokens.
-In between every op is token-local except the ring attention, as under the
-JAX package's `constrain_tokens`.
+x (img_len tokens) and m (num_patches tokens), each padded at its end to a
+multiple of sp (the pads masked as keys, dropped at the gather), and both
+are gathered again before `norm` and the heads, whose unpatchify and 3x3
+convs cross tokens.  In between every op is token-local except the ring
+attention, as under the JAX package's `constrain_tokens`.
+
+`forward` is `head(trunk(embed(...)))`, JAX's `stage="embed"` /
+`stage="head"` split (`models/uvit_t2i.py:129, 228`); the trunk is made of
+`in_layer` / `mid_layer` / `out_layer` (a dual layer is the image block,
+the mask block and their zero conv, JAX's `_DualBody`), which
+`parallel/pipeline.py` runs over pipeline stages.
 """
 from __future__ import annotations
 
@@ -126,10 +133,10 @@ class UViTT2I(nn.Module):
                 nn.init.zeros_(zc.conv.weight)
                 nn.init.zeros_(zc.conv.bias)
 
-    def forward(self, x, timesteps, context, mask_token=None, use_ground_truth=False):
-        """x (B, C, h, w) latent; timesteps (B,); context (B, 77, clip_dim);
-        mask_token optional (B, mask_bits, mask_size, mask_size) analog bits.
-        Returns noise (B, C, h, w), or (noise, mask_pred) when mask_token is given."""
+    def embed(self, x, timesteps, context, mask_token=None, use_ground_truth=False):
+        """The stage before the blocks (JAX `stage="embed"`): (carry, ctx),
+        carry (x, m) for the dual streams or (x,) for one (this rank's
+        shards under sp), ctx what the layers and `head` need."""
         dt = self.pos_embed.dtype
         x = self.patch_embed(x.to(dt))
         l = x.shape[1]
@@ -153,64 +160,123 @@ class UViTT2I(nn.Module):
             x = torch.cat([time_token, context_token, x], dim=1)
             x = x + self.pos_embed[:, : self.extras + l]
 
-        img_len = self.extras + l
+        ctx = dict(l=l, panoptic=panoptic, dual=dual, mask_token=mask_token,
+                   use_ground_truth=use_ground_truth, img_len=self.extras + l,
+                   tokens=(x.shape[1], None if m is None else m.shape[1]), order=None)
+        if self.sp is not None:
+            self._shard(x, m, ctx)
+            x = self.sp.shard(x)
+            m = None if m is None else self.sp.shard(m)
+        return ((x, m) if dual else (x,)), ctx
+
+    def _shard(self, x, m, ctx) -> None:
+        """Register the streams' per-shard token counts with the sp context
+        and lay out the mask stream's shards.  Each stream is padded at its
+        end and sharded on its own, so a shard of the mask stream is [x
+        shard ; m shard], and `couple` splits it at the local img_len.  The
+        mask stream's ring then sees its tokens in the order [x_0; m_0; x_1;
+        m_1; ...], a permutation of [x ; m]: attention is equivariant under a
+        permutation of its tokens (positions enter through pos_embed only),
+        and every other op of a block is token-local, so each token's output
+        is unchanged.  When x's pad rows would sit before real m rows in a
+        shard, the ring (which masks a shard's keys from its count on) needs
+        them at the end: the mask stream's blocks then run on each shard
+        reordered as [x real ; m real ; x pads ; m pads] (`ctx['order']`,
+        undone before `couple`)."""
         sp = self.sp
-        if sp is not None:
-            # Each stream is sharded on its own, so a shard of the mask stream
-            # is [x shard ; m shard] and `couple` splits it at the local
-            # img_len.  The mask stream's ring then sees its tokens in the
-            # order [x_0; m_0; x_1; m_1; ...], a permutation of [x ; m]:
-            # attention is equivariant under a permutation of its tokens
-            # (positions enter through pos_embed only), and every other op of
-            # a block is token-local, so each token's output is unchanged.
-            sp.check_tokens(x.shape[1], "UViTT2I image stream")
-            x = sp.shard(x)
-            if m is not None:
-                sp.check_tokens(m.shape[1], "UViTT2I mask stream")
-                m = sp.shard(m)
-            img_len //= sp.sp
-        half = self.depth // 2
+        n_x = x.shape[1]
+        lx, cx = sp.padded(n_x), sp.contiguous_counts(n_x)
+        sp.set_counts(lx, cx)
+        ctx["img_len"] = lx
+        if m is None:
+            return
+        lm, cm = sp.padded(m.shape[1]), sp.contiguous_counts(m.shape[1])
+        sp.set_counts(lx + lm, [a + b for a, b in zip(cx, cm)])
+        if all(c == lx or b == 0 for c, b in zip(cx, cm)):
+            return  # the pads already form each shard's tail
+        orders = []
+        for s in sp.local_shards():
+            orders.append(list(range(cx[s])) + list(range(lx, lx + cm[s]))
+                          + list(range(cx[s], lx)) + list(range(lx + cm[s], lx + lm)))
+        order = torch.tensor(orders, device=x.device).repeat_interleave(x.shape[0], 0)
+        ctx["order"] = (order, torch.argsort(order, dim=1))
 
-        def couple(mx, x, index):
-            """Gate the image half of the mask stream into x; keep its mask half."""
-            return x + self.zero_convs[str(index)](mx[:, :img_len]), mx[:, img_len:]
+    @staticmethod
+    def _reorder(mx, index):
+        return torch.gather(mx, 1, index[..., None].expand(-1, -1, mx.shape[-1]))
 
-        skips, skips_mask = [], []
-        for i in range(half):
-            if dual:
-                mx = torch.cat([x, m], dim=1)
-            x = self.in_blocks[i](x)
-            if dual:
-                mx = self.in_blocks_mask[i](mx)
-                x, m = couple(mx, x, 2 * i + 1)
-                skips_mask.append(mx)
-            skips.append(x)
-        if dual:
-            mx = torch.cat([x, m], dim=1)
+    def _mx(self, x, m, ctx):
+        """The mask stream's input [x ; m], in its shard order under sp."""
+        mx = torch.cat([x, m], dim=1)
+        return mx if ctx["order"] is None else self._reorder(mx, ctx["order"][0])
+
+    def couple(self, mx, x, index, ctx):
+        """Gate the image half of the mask stream into x; keep its mask half."""
+        if ctx["order"] is not None:
+            mx = self._reorder(mx, ctx["order"][1])
+        n = ctx["img_len"]
+        return x + self.zero_convs[str(index)](mx[:, :n]), mx[:, n:]
+
+    def in_layer(self, i, carry, ctx):
+        """In-layer i: the image block (and the mask block with its zero
+        conv); returns (carry, the skips it leaves)."""
+        if not ctx["dual"]:
+            x = self.in_blocks[i](carry[0])
+            return (x,), (x,)
+        x, m = carry
+        mx = self._mx(x, m, ctx)
+        x = self.in_blocks[i](x)
+        mx = self.in_blocks_mask[i](mx)
+        x, m = self.couple(mx, x, 2 * i + 1, ctx)
+        return (x, m), (x, mx)
+
+    def mid_layer(self, carry, ctx):
+        if not ctx["dual"]:
+            return (self.mid_block(carry[0]),)
+        x, m = carry
+        mx = self._mx(x, m, ctx)
         x = self.mid_block(x)
-        if dual:
-            mx = self.mid_block_mask(mx)
-            x, m = couple(mx, x, 2 * half + 1)
-        for i in range(half):
-            if dual:
-                mx = torch.cat([x, m], dim=1)
-            x = self.out_blocks[i](x, skips.pop())
-            if dual:
-                mx = self.out_blocks_mask[i](mx, skips_mask.pop())
-                x, m = couple(mx, x, 2 * (half + 1 + i) + 1)
+        mx = self.mid_block_mask(mx)
+        return self.couple(mx, x, 2 * (self.depth // 2) + 1, ctx)
 
-        if sp is not None:
-            x = sp.gather(x)
-            m = None if m is None else sp.gather(m)
+    def out_layer(self, i, carry, skip, ctx):
+        """Out-layer i on the skips of in-layer depth/2 - 1 - i."""
+        if not ctx["dual"]:
+            return (self.out_blocks[i](carry[0], skip[0]),)
+        x, m = carry
+        mx = self._mx(x, m, ctx)
+        x = self.out_blocks[i](x, skip[0])
+        mx = self.out_blocks_mask[i](mx, skip[1])
+        return self.couple(mx, x, 2 * (self.depth // 2 + 1 + i) + 1, ctx)
+
+    def trunk(self, carry, ctx):
+        """The blocks: in-layers (skips pushed), mid, out-layers (popped)."""
+        half = self.depth // 2
+        skips = []
+        for i in range(half):
+            carry, skip = self.in_layer(i, carry, ctx)
+            skips.append(skip)
+        carry = self.mid_layer(carry, ctx)
+        for i in range(half):
+            carry = self.out_layer(i, carry, skips.pop(), ctx)
+        return carry
+
+    def head(self, carry, ctx):
+        """The stage after the blocks (JAX `stage="head"`)."""
+        x, m = carry if ctx["dual"] else (carry[0], None)
+        if self.sp is not None:
+            x = self.sp.gather(x, ctx["tokens"][0])
+            m = None if m is None else self.sp.gather(m, ctx["tokens"][1])
         x = self.norm(x)
+        l, mask_token = ctx["l"], ctx["mask_token"]
         mask_pred = None
-        if panoptic:
+        if ctx["panoptic"]:
             if self.separate:
                 image_feature, mask_feature = x[:, self.extras:], m
             else:
                 image_feature = x[:, self.extras: self.extras + l]
                 mask_feature = x[:, self.extras + l:]
-            if use_ground_truth:
+            if ctx["use_ground_truth"]:
                 noise = self.decoder_pred(image_feature + mask_feature)
                 mask_pred = mask_token
             else:
@@ -227,3 +293,10 @@ class UViTT2I(nn.Module):
         if mask_token is not None:
             return noise, mask_pred
         return noise
+
+    def forward(self, x, timesteps, context, mask_token=None, use_ground_truth=False):
+        """x (B, C, h, w) latent; timesteps (B,); context (B, 77, clip_dim);
+        mask_token optional (B, mask_bits, mask_size, mask_size) analog bits.
+        Returns noise (B, C, h, w), or (noise, mask_pred) when mask_token is given."""
+        carry, ctx = self.embed(x, timesteps, context, mask_token, use_ground_truth)
+        return self.head(self.trunk(carry, ctx), ctx)

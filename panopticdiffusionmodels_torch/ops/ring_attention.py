@@ -11,8 +11,10 @@ combines them exactly, in f32, in the JAX package's order:
     den = den * corr + den_hop * corr_hop; o = o * corr + o_hop * corr_hop
 
 and the output is (o / den) cast to the network dtype.  Token counts that do
-not divide sp are padded by `ring_attention_qkv`; the padded keys of a hop
-are masked through `nvalid = clip(l_true - src * l_loc, 0, l_loc)`.
+not divide sp are padded (by `ring_attention_qkv`, or by the context's
+`shard` on a model's streams); the padded keys of a hop are masked through
+the per-row `nvalid`, the real tokens of the shard the keys came from
+(`clip(l_true - src * l_loc, 0, l_loc)` for a stream padded at its end).
 
 Gradients: each hop is a `torch.autograd.Function` (`RingHop`) whose forward
 is the kernel and whose backward re-differentiates the plain hop.  The
@@ -22,7 +24,6 @@ backward.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..parallel.mesh import SequenceParallel
 from .kernels.ring_hop import attention_hop, attention_hop_plain
@@ -61,19 +62,22 @@ def ring_attention_local(qkv: torch.Tensor, heads: int, scale: float, sp: Sequen
                          l_true: int = None, use_kernel: bool = True) -> torch.Tensor:
     """Ring attention on this rank's local packed (b, l_loc, 3C) shard, in
     `sp`'s layout (folded shards for `InProcessSP`); returns (b, l_loc, C).
-    Global token rows >= `l_true` (default: all are real) are padding: masked
-    as keys, garbage as queries.  `use_kernel=False` runs every hop's forward
-    through the plain version (the reference the card's kernel path is held
-    to); the backward is the same plain recompute either way."""
+    Each shard's real tokens come first: the keys of a shard past its count
+    are masked, the counts being those `sp.set_counts` registered for
+    `l_loc` (a model's token streams), or with `l_true` those of l_true
+    global tokens padded at their end (default: every token is real).  Pad
+    rows are garbage as queries.  `use_kernel=False` runs every hop's
+    forward through the plain version (the reference the card's kernel path
+    is held to); the backward is the same plain recompute either way."""
     b, l_loc, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    l_true = sp.sp * l_loc if l_true is None else l_true
+    counts = sp.counts(l_loc) if l_true is None else sp.contiguous_counts(l_true)
     acc = torch.promote_types(qkv.dtype, torch.float32)
     q, kv = qkv[..., :c], qkv[..., c:]
 
     def partials(kv, hop):
-        nvalid = sp.nvalid(hop, l_loc, l_true, b, qkv.device)
+        nvalid = sp.nvalid(hop, counts, b, qkv.device)
         o_hop, m_hop, den_hop = RingHop.apply(q, kv, nvalid, heads, scale, use_kernel)
         return o_hop.to(acc).reshape(b, l_loc, heads, d), m_hop[..., None], den_hop[..., None]
 
@@ -97,9 +101,5 @@ def ring_attention_qkv(qkv: torch.Tensor, heads: int, scale: float, sp: Sequence
     every rank.  L is padded to a multiple of sp and the padding masked, as
     JAX's `ring_attention_qkv` does."""
     l = qkv.shape[1]
-    l_pad = -(-l // sp.sp) * sp.sp
-    if l_pad != l:
-        qkv = F.pad(qkv, (0, 0, 0, l_pad - l))
-    out = sp.gather(ring_attention_local(sp.shard(qkv), heads, scale, sp, l_true=l,
-                                         use_kernel=use_kernel))
-    return out[:, :l] if l_pad != l else out
+    return sp.gather(ring_attention_local(sp.shard(qkv), heads, scale, sp, l_true=l,
+                                          use_kernel=use_kernel), l)

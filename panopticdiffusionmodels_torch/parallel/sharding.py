@@ -1,6 +1,7 @@
 """Fully sharded data parallelism: the network's parameters sharded over the
 layout's fsdp axis with FSDP2's `fully_shard`, and the gathers and scatters
-that checkpoints and the gradient norm need.
+that checkpoints and the sampler need (`parallel/placement.py` reduces the
+gradient and takes its norm).
 
 Port of `panopticdiffusionmodels_tpu/parallel/sharding.py`'s fsdp rule.  JAX
 shards each tensor of >= 2**16 elements on its largest dimension that fsdp
@@ -21,7 +22,6 @@ in one process.
 from __future__ import annotations
 
 import sys
-from typing import Iterable
 
 import torch
 import torch.distributed as dist
@@ -36,10 +36,11 @@ def _units():
 
 def shard_model(nnet: torch.nn.Module, layout, device: torch.device) -> torch.nn.Module:
     """`fully_shard` every unit of `nnet` and then its root on the layout's
-    device mesh, in place; returns `nnet` (now an `FSDPModule`)."""
+    fsdp mesh (('dp', 'fsdp') for HSDP), in place; returns `nnet` (now an
+    `FSDPModule`)."""
     from torch.distributed.fsdp import fully_shard
 
-    mesh = layout.device_mesh(torch.device(device).type)
+    mesh = layout.fsdp_mesh(torch.device(device).type)
     units = _units()
     for module in list(nnet.modules())[1:]:
         if isinstance(module, units):
@@ -100,13 +101,3 @@ def shard_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
     return distribute_tensor(t.to(like.device, like.dtype), like.device_mesh, like.placements,
                              src_data_rank=None)
-
-
-def grad_norm(grads: Iterable[torch.Tensor], layout) -> torch.Tensor:
-    """The 2-norm of the whole gradient from sharded gradients: the squares
-    of this rank's shards, summed over the fsdp ranks of its replica (the dp
-    replicas hold the same shards)."""
-    local_grads = [local(g) for g in grads]
-    sq = torch.stack(torch._foreach_norm(local_grads)).square().sum()
-    dist.all_reduce(sq, group=layout.device_mesh(sq.device.type).get_group("fsdp"))
-    return sq.sqrt()

@@ -18,11 +18,14 @@ write is pending: a save first waits for the one before.  `wait_for_saves`
 waits for it and re-raises its error; `latest_step`, `load_checkpoint` and
 `resume` call it first, and so does an `atexit` hook.
 
-A sharded (FSDP) train state gathers whole tensors in `state_dict()`, a
-collective: every rank calls `save_checkpoint`, the gather runs on each at
-the call, and only the rank that passes `write=True` (rank 0) stages and
-writes the file, the same file one process writes.  Every rank reads it
-back whole and keeps its shards (`TrainState.load_state_dict`).
+A train state under a process mesh (fsdp shards, tp slices, a pipeline
+stage's blocks) gathers whole tensors and merges the stages in
+`state_dict()`, a collective: every rank calls `save_checkpoint`, the
+gather runs on each at the call, and only the rank that passes
+`write=True` (rank 0) stages and writes the file, the same file one
+process writes.  Every rank reads it back whole and keeps its part
+(`TrainState.load_state_dict`), so a file written under one layout
+resumes under another.
 """
 from __future__ import annotations
 

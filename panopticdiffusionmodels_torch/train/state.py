@@ -16,10 +16,13 @@ weight decay; the same m_hat / (sqrt(v_hat) + eps)).  Frozen parameters
 
 Built from a network that `parallel/sharding.py` has sharded (FSDP), the
 parameters are `DTensor`s, and so are the moments and the EMA made from
-them: each rank updates its own shards.  `state_dict` then gathers whole
-tensors (a collective every rank enters), so a checkpoint holds what one
-process's holds, and `load_state_dict` keeps each rank's chunk of the whole
-tensors it reads.
+them: each rank updates its own shards.  Under a process mesh the trainer
+hands the state a `parallel/placement.py::Placement` (a rank may hold tp
+slices and one pipeline stage's blocks): `state_dict` then gathers whole
+tensors and merges the stages (a collective every rank enters), so a
+checkpoint holds what one process's holds, with the optimizer's state in
+one process's order, and `load_state_dict` keeps each rank's part of the
+whole tensors it reads.
 """
 from __future__ import annotations
 
@@ -71,11 +74,17 @@ class TrainState:
 
     def __init__(self, model: torch.nn.Module, lr_schedule: Callable[[int], float],
                  betas: Sequence[float] = (0.9, 0.999), weight_decay: float = 0.0,
-                 eps: float = 1e-8, frozen: Iterable[str] = (), optimizer: str = "adamw"):
+                 eps: float = 1e-8, frozen: Iterable[str] = (), optimizer: str = "adamw",
+                 placement=None):
         self.step = 0
         self.params: Dict[str, torch.nn.Parameter] = dict(model.named_parameters())
+        # Under a process mesh (`parallel/placement.py`) this rank may hold a
+        # part of the network: `full_names` are the whole network's, in one
+        # process's order, and `frozen` may name parameters of other stages.
+        self.placement = placement
+        self.full_names = list(self.params) if placement is None else placement.full_names
         self.frozen = set(frozen)
-        unknown = self.frozen - set(self.params)
+        unknown = self.frozen - set(self.full_names)
         if unknown:
             raise ValueError(f"frozen names not in the model: {sorted(unknown)[:5]}")
         self.lr_schedule = lr_schedule
@@ -106,15 +115,64 @@ class TrainState:
     def sharded(self) -> bool:
         return any(is_sharded(p) for p in self.params.values())
 
+    def _trainable(self, names) -> list:
+        return [n for n in names if n not in self.frozen]
+
     def state_dict(self) -> dict:
         """{step, params, ema_params, opt_state}: the live tensors, not
         copies (`checkpoint.save_checkpoint` copies them to the host); when
-        sharded, whole tensors gathered from every rank."""
+        sharded, whole tensors gathered from every rank, and under a process
+        mesh one process's state (a collective every rank enters)."""
+        if self.placement is not None:
+            return self._whole_state_dict()
         sd = {"step": self.step, "params": {k: v.detach() for k, v in self.params.items()},
               "ema_params": self.ema, "opt_state": self.optimizer.state_dict()}
         return full(sd) if self.sharded else sd
 
+    def _whole_state_dict(self) -> dict:
+        pl = self.placement
+        by_name = {}
+        for name, p in self.params.items():
+            st = self.optimizer.state.get(p, {})
+            moments = {k: pl.whole(name, v) if torch.is_tensor(v) and v.dim() else v
+                       for k, v in st.items()} if st else None
+            by_name[name] = (pl.whole(name, p.detach()), pl.whole(name, self.ema[name]), moments)
+        merged = pl.merge_stages(by_name)
+        missing = set(self.full_names) - set(merged)
+        if missing:
+            raise RuntimeError(f"no stage holds {sorted(missing)[:5]}")
+        trainable = self._trainable(self.full_names)
+        groups = [{k: v for k, v in g.items() if k != "params"}
+                  for g in self.optimizer.state_dict()["param_groups"]]
+        return {"step": self.step,
+                "params": {n: merged[n][0] for n in self.full_names},
+                "ema_params": {n: merged[n][1] for n in self.full_names},
+                "opt_state": {"state": {i: merged[n][2] for i, n in enumerate(trainable)
+                                        if merged[n][2] is not None},
+                              "param_groups": [dict(groups[0], params=list(range(len(trainable))))]}}
+
+    def _load_placed(self, payload: dict) -> None:
+        pl = self.placement
+        with torch.no_grad():
+            for name, p in self.params.items():
+                p.copy_(pl.part(name, payload["params"][name], p))
+                self.ema[name].copy_(pl.part(name, payload["ema_params"][name], self.ema[name]))
+        opt_state = payload["opt_state"]
+        index = {n: i for i, n in enumerate(self._trainable(self.full_names))}
+        mine = self._trainable(self.params)
+        state = {}
+        for j, name in enumerate(mine):
+            st = opt_state["state"].get(index[name])
+            if st is not None:
+                state[j] = {k: pl.part(name, v, self.params[name])
+                            if torch.is_tensor(v) and v.dim() else v for k, v in st.items()}
+        groups = [dict(opt_state["param_groups"][0], params=list(range(len(mine))))]
+        self.optimizer.load_state_dict(dict(state=state, param_groups=groups))
+        self.step = int(payload["step"])
+
     def load_state_dict(self, payload: dict) -> None:
+        if self.placement is not None:
+            return self._load_placed(payload)
         opt_state = payload["opt_state"]
         with torch.no_grad():
             for name, p in self.params.items():

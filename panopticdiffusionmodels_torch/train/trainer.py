@@ -34,38 +34,38 @@ images (`pixel_sde`, unconditional or class-conditional, reference
   * `build_sample_fn` samples with the EMA weights through
     `serving.GenerationPipeline.sample` (kernel 1, no gradient), decoding
     with the config's VAE when its file exists;
-  * the layout is `parallel.mesh.from_mesh`'s for the world it finds.  The
-    default mesh (dp = -1) over several processes (`torchrun`) trains data
-    parallel, as JAX's dp = -1 does over every process: the model is
-    wrapped in `DistributedDataParallel`, each process loads its rows of the
-    GLOBAL batch `train.batch_size` and keeps its rows of the global batch's
-    draws, the gradient all-reduce averages the processes' gradients (every
-    micro-batch but the last under `no_sync()`), and the losses are averaged
-    over the processes, so a step computes what one process computes on the
-    global batch;
-  * `mesh.fsdp > 1` trains fully sharded (`parallel/sharding.py`, FSDP2):
-    the network is sharded over fsdp (and replicated over dp: HSDP) before
-    the train state is built, so the optimizer moments and the EMA are
-    sharded with it; the batch rows, the draws and the averaged metrics are
-    data parallelism's, the gradient collective is held off between
-    micro-batches with `set_requires_gradient_sync`, and `grad_norm` is the
-    norm of the whole gradient over every shard.  Every rank gathers the
-    state for a checkpoint, rank 0 writes it: the file one process writes.
-    The callbacks, which sample on rank 0 alone, do not run (a warning
-    says so), and every `save_interval` step is checkpointed;
-  * `mesh.sp > 1` (the other axes at 1) trains sequence-parallel, as the
-    JAX trainer does: the model's attention becomes the ring
-    (`attn_impl='ring'`) over the layout's sp context.
-    Every sp rank reads the same batch and draws the same noise; under
-    `sp_mode='process_group'` each of the sp processes computes the whole
-    loss after the model's gather, so the loss is scaled by 1/sp before the
-    backward (whose gather transposes to a reduce-scatter) and every
-    gradient, frozen ones too, is summed over the ranks before the norm and
-    AdamW: the step equals the unsharded one;
-  * under either, only rank 0 makes the directories, writes `metrics.jsonl`
-    and checkpoints and runs the callbacks; the other ranks wait at a
-    barrier after a callback, and every rank resumes from the same
-    checkpoint.
+  * the layout is `parallel.mesh.from_mesh`'s for the world it finds, JAX's
+    (pp, dp, fsdp, sp, tp) mesh laid over the processes.  Every process
+    loads its (dp, fsdp) shard's rows of the GLOBAL batch `train.batch_size`
+    and keeps its rows of the global batch's draws (its pp, sp and tp peers
+    load and draw the same), and the metrics are averaged over the data
+    shards, so a step computes what one process computes on the global
+    batch.  The default mesh (dp = -1) over several processes (`torchrun`)
+    trains data parallel through `DistributedDataParallel` (every
+    micro-batch but the last under `no_sync()`);
+  * `mesh.fsdp > 1` shards the network over fsdp (and replicates it over
+    dp: HSDP) before the train state is built, so the optimizer moments and
+    the EMA are sharded with it (`parallel/sharding.py`, FSDP2; its gradient
+    collective is held off between micro-batches);
+  * `mesh.tp > 1` cuts every block's qkv / MLP (and the UNet's attention
+    and GEGLU) per head over tp (`parallel/tensor.py`); `mesh.pp > 1` keeps
+    this stage's blocks and runs the trunk as JAX's boomerang pipeline
+    (`parallel/pipeline.py`, `train.pp_microbatches`, default pp); what JAX
+    refuses under pp the trainer refuses with its reason;
+  * `mesh.sp > 1` trains sequence-parallel, as the JAX trainer does: the
+    model's attention becomes the ring (`attn_impl='ring'`) over the
+    layout's sp context, token streams that do not divide sp padded;
+  * each of the sp processes (sp_mode 'process_group') and each pipeline
+    stage computes the whole loss, so the loss is scaled by 1/(sp x pp);
+    `parallel/placement.py` then sums the gradients over sp, the replicated
+    parameters' over pp, and averages over dp where neither DDP nor FSDP
+    does; `grad_norm` is the norm of the whole gradient, each tensor counted
+    once;
+  * only rank 0 makes the directories, writes `metrics.jsonl` and the
+    checkpoints (every rank enters the state's gathers: a checkpoint is one
+    process's file, which resumes under any layout); every rank runs the
+    callbacks and samples, rank 0 writes; the ranks wait at a barrier after
+    a callback, and every rank resumes from the same checkpoint.
 
 Batches are channel-last numpy arrays as the JAX package's (moments
 (B, h, w, 2C), context (B, 77, D), panoptic ids (B, H, W, 1); or moments and
@@ -108,7 +108,16 @@ from ..models import get_nnet
 from ..models.vae import get_model as get_vae
 from ..models.vae import sample_from_moments
 from ..parallel import sharding
-from ..parallel.mesh import DataParallel, FullyShardedDataParallel, SequenceParallel, from_mesh
+from ..parallel import tensor as tp_lib
+from ..parallel.mesh import (
+    DataParallel,
+    FullyShardedDataParallel,
+    ProcessGroupSP,
+    SequenceParallel,
+    from_mesh,
+)
+from ..parallel.pipeline import Pipelined, ProcessExchange, keep_stage
+from ..parallel.placement import Placement
 from ..utils.weights import load_nnet_state_dict, load_torch_state_dict
 from . import checkpoint as ckpt_lib
 from .state import TrainState, make_lr_schedule, panoptic_image_stream_frozen
@@ -171,24 +180,27 @@ def _check_supported(config, task: str) -> None:
                                   "'adam'")
 
 
-def make_train_state(config, nnet: torch.nn.Module, task: str) -> TrainState:
+def make_train_state(config, nnet: torch.nn.Module, task: str, placement=None) -> TrainState:
     """The train state of `nnet` as `Trainer` builds it: the config's
     optimizer and learning-rate schedule; with `config.pretrained` set, a
     t2i_discrete fine-tune leaves the image stream out of the optimizer (a
     class-conditional one freezes nothing; JAX's freeze set matches U-ViT
     names only, so a UNet fine-tune freezes nothing there and here).
     `scripts/convert_checkpoint.py` builds the same, so that
-    `Trainer.resume` loads its checkpoint strictly."""
+    `Trainer.resume` loads its checkpoint strictly.  Under a process mesh
+    `placement` names the whole network's parameters."""
     frozen = ()
     if config.get("pretrained", "") and task == "t2i_discrete":
-        frozen = panoptic_image_stream_frozen(n for n, _ in nnet.named_parameters())
+        names = placement.full_names if placement is not None else \
+            [n for n, _ in nnet.named_parameters()]
+        frozen = panoptic_image_stream_frozen(names)
     lr_sched = make_lr_schedule(
         config.optimizer.lr, config.lr_scheduler.name,
         warmup_steps=config.lr_scheduler.get("warmup_steps", -1),
         total_steps=config.train.n_steps)
     return TrainState(nnet, lr_sched, betas=config.optimizer.betas,
                       weight_decay=config.optimizer.get("weight_decay", 0.0), frozen=frozen,
-                      optimizer=config.optimizer.name)
+                      optimizer=config.optimizer.name, placement=placement)
 
 
 class Trainer:
@@ -203,10 +215,18 @@ class Trainer:
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
         layout = from_mesh(config.get("mesh", {}))
-        self.sp = layout if isinstance(layout, SequenceParallel) else None
+        # `dp`: the process mesh (rows, draws, averaged metrics, barriers),
+        # None in one process; `sp`: the sequence-parallel context
         self.dp = layout if isinstance(layout, DataParallel) else None
+        self.sp = layout if isinstance(layout, SequenceParallel) else \
+            getattr(layout, "seq", None)
         self.fsdp = layout if isinstance(layout, FullyShardedDataParallel) else None
+        self.tp = 1 if self.dp is None else self.dp.tp
+        self.pp = 1 if self.dp is None else self.dp.pp
         self.is_main = layout is None or layout.is_main
+        self._check_layout(config)
+        if self.dp is not None:  # every axis's process group, on every rank at once
+            self.dp.init_groups(self.device.type)
         self.workdir = workdir or config.get("workdir", "") or "results/run"
         self.ckpt_root = os.path.join(self.workdir, "ckpts")
         if self.is_main:
@@ -220,8 +240,9 @@ class Trainer:
         self.is_unet = config.nnet.name == "unet_t2i"
         if not self.is_unet:  # the UNet's attention is the plain one, as in JAX
             nnet_kwargs.setdefault("attn_impl", "auto")  # or the config's, e.g. pallas_recompute
-        if self.sp is not None:
-            nnet_kwargs.update(attn_impl="ring", sp=self.sp)
+        if self.sp is not None:  # the ring, or with nnet.attn_impl='ring_plain' its plain hops
+            ring = "ring_plain" if nnet_kwargs.get("attn_impl") == "ring_plain" else "ring"
+            nnet_kwargs.update(attn_impl=ring, sp=self.sp)
             if self.sp.mode == "in_process":
                 log.info("mesh.sp=%d in_process: every sp shard runs in this process on %s, "
                          "folded into the batch (the ring's rotation is a torch.roll)",
@@ -229,6 +250,7 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.seed)
             self.nnet = get_nnet(config.nnet.name, **nnet_kwargs)
+        full_names = [n for n, _ in self.nnet.named_parameters()]
 
         pretrained = config.get("pretrained", "")
         if pretrained:
@@ -238,16 +260,25 @@ class Trainer:
                 raise FileNotFoundError(f"config.pretrained={pretrained!r} does not exist")
             # a UNet reads an LDM / miniSD checkpoint into its image stream (JAX l.220-229)
             load_nnet_state_dict(self.nnet, load_torch_state_dict(pretrained), config.nnet)
+        # The whole network, the same on every rank, is cut to this rank's part:
+        # its tp slices, its pipeline stage's blocks, then its fsdp shards.
+        tp_rules = self._place(self.nnet)
         self.nnet.to(self.device)
         if self.fsdp is not None:  # before the state: its moments and EMA follow the shards
             sharding.shard_model(self.nnet, self.fsdp, self.device)
+        self.placement = None
+        if self.dp is not None and not self.dp.pure_data_parallel:
+            self.placement = Placement(self.dp, full_names, tp_rules,
+                                       half=config.nnet.get("depth", 0) // 2)
 
-        self.state = make_train_state(config, self.nnet, self.task)
-        # What the loss calls: the network (sharded or not), or its data-parallel
-        # wrapper, whose backward all-reduces (averages) the gradients bucket by
-        # bucket.
+        self.state = make_train_state(config, self.nnet, self.task, self.placement)
+        # What the loss calls: the network (sharded or not), its pipelined
+        # trunk, or its data-parallel wrapper, whose backward all-reduces
+        # (averages) the gradients bucket by bucket.
         self.model = self.nnet
-        if self.dp is not None and self.fsdp is None:
+        if self.pp > 1:
+            self.model = Pipelined(self.nnet, ProcessExchange(self.dp), self.num_micro)
+        elif self.dp is not None and self.dp.pure_data_parallel:
             self.model = torch.nn.parallel.DistributedDataParallel(
                 self.nnet, device_ids=[self.device.index] if self.device.type == "cuda" else None,
                 # the mask head takes no gradient when the true mask is fed in
@@ -268,6 +299,38 @@ class Trainer:
             self.vae.to(self.device).eval().requires_grad_(False)
         self._pipeline = None  # the sampling pipeline, built by the first sampler
         self.input_pipeline = None  # 'native' or 'python', set by data_stream
+
+    def _check_layout(self, config) -> None:
+        """What JAX's `Trainer.__init__` refuses under pp (l.157-189), with
+        its reasons; sets `num_micro` (`train.pp_microbatches`, default pp)."""
+        self.num_micro = int(config.train.get("pp_microbatches", 0) or 0) or self.pp
+        if self.pp == 1:
+            return
+        name = config.nnet.name
+        if name not in ("uvit", "uvit_t2i"):
+            raise ValueError(f"mesh.pp>1 is not supported for nnet {name!r}")
+        half = config.nnet.depth // 2
+        if half % self.pp:
+            raise ValueError(f"mesh.pp={self.pp} must divide depth/2={half}")
+        shards = self.dp.data_shards
+        if config.train.batch_size % (self.num_micro * shards):
+            raise ValueError(f"batch_size {config.train.batch_size} must divide into "
+                             f"{self.num_micro} microbatches x {shards} data shards")
+        if self.fsdp is not None:
+            raise ValueError("mesh.pp>1 beside mesh.fsdp>1: a pipeline stage sharded over "
+                             "fsdp is not ported (FSDP2 gathers at each call of a block, and a "
+                             "stage calls each block once per microbatch)")
+
+    def _place(self, nnet) -> dict:
+        """Cut the whole network `nnet` to this rank's part, in place: its tp
+        slices (returns the tp rules) and its pipeline stage's blocks."""
+        rules = {}
+        if self.tp > 1:
+            rules = tp_lib.shard_model(nnet, self.dp.group("tp"), self.tp,
+                                       self.dp.coords["tp"])
+        if self.pp > 1:
+            keep_stage(nnet, self.pp, self.dp.coords["pp"])
+        return rules
 
     # --- loss and step ------------------------------------------------------
 
@@ -360,7 +423,7 @@ class Trainer:
         f32 = dict(generator=g, dtype=torch.float32, device=dev)
         b, rows = batch[0].shape[0], slice(None)
         if self.dp is not None:
-            b *= self.dp.world_size
+            b *= self.dp.data_shards
             rows = self.dp.process_batch_slice(b)
         shape = (b, *batch[0].shape[1:])
         noise = {}
@@ -393,11 +456,14 @@ class Trainer:
         for p in self.state.params.values():
             p.grad = None
         accum = int(self.config.train.get("grad_accum", 1))
-        # Each of `world` processes computes the whole loss (sp of them under
-        # sp_mode='process_group', else one); their gradients are summed below.
-        # A data-parallel process computes its rows' loss, and the gradient
-        # all-reduce of `DistributedDataParallel` averages over the processes.
-        world = 1 if self.sp is None else self.sp.world_size
+        # Each of `world` processes computes the whole loss of its rows (the
+        # sp processes under sp_mode='process_group', and the pp stages, from
+        # stage 0's broadcast outputs); their gradients are summed below.  The
+        # tp ranks each compute it too, and their collectives make every
+        # gradient whole on each.  A data-parallel process computes its rows'
+        # loss; the gradients are averaged over the data shards (by
+        # `DistributedDataParallel`, FSDP, or `Placement.reduce_grads`).
+        world = (1 if self.sp is None else self.sp.world_size) * self.pp
         # Micro-batches of B/accum, each with its slice of the draws; the
         # gradient is the mean of theirs, the metrics the mean of theirs.
         micro = [tuple(x.chunk(accum)) for x in batch]
@@ -410,16 +476,19 @@ class Trainer:
                 (loss / (accum * world)).backward()
             parts.append(m)
         metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
-        if self.sp is not None:
-            self.sp.all_reduce_grads(self.state.params.values())
+        if self.placement is not None:
+            self.placement.reduce_grads(self.state.params, manual_data=self.fsdp is None)
         if self.dp is not None:
             names = sorted(metrics)
             mean = torch.stack([metrics[k] for k in names])
             dist.all_reduce(mean)
             metrics = dict(zip(names, mean / self.dp.world_size))
-        grads = [p.grad for p in self.state.params.values() if p.grad is not None]
-        metrics["grad_norm"] = sharding.grad_norm(grads, self.fsdp) if self.fsdp else \
-            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.placement is not None:
+            metrics["grad_norm"] = self.placement.grad_norm(self.state.params)
+        else:
+            grads = [p.grad for p in self.state.params.values() if p.grad is not None]
+            metrics["grad_norm"] = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         return metrics
 
     def _grad_sync(self, sync: bool):
@@ -428,7 +497,7 @@ class Trainer:
         `set_requires_gradient_sync(False)`, which keeps them unsharded)."""
         if self.fsdp is not None:
             self.nnet.set_requires_gradient_sync(sync)
-        elif self.dp is not None and not sync:
+        elif self.dp is not None and self.dp.pure_data_parallel and not sync:
             return self.model.no_sync()
         return contextlib.nullcontext()
 
@@ -447,22 +516,27 @@ class Trainer:
     def sample_pipeline(self):
         """The `serving.GenerationPipeline` that samples for this trainer: a
         sampling copy of the network with `attn_impl='infer'` (kernel 1 with
-        no gradient, as JAX's `clone(attn_impl="infer")`), in the config's
-        compute dtype, the trainer's VAE, and the dataset's empty context for
-        CFG.  Built once; `build_sample_fn` copies the EMA weights into it at
-        every call."""
-        if self.sp is not None or self.fsdp is not None:
-            raise NotImplementedError("sampling from a sequence-parallel or fully sharded "
-                                      "trainer comes with a later distributed slice (ROADMAP "
-                                      "Queue 1 entry 4); sample from its checkpoint in one "
-                                      "process")
+        no gradient, as JAX's `clone(attn_impl="infer")`; the ring under sp,
+        its hops through kernel 3), laid out as the trainer's (this rank's tp
+        slices and pipeline stage, the trunk pipelined with the microbatch
+        count adapted to each batch, as JAX's `build_sample_fn` does under pp;
+        whole over fsdp), in the config's compute dtype, the trainer's VAE,
+        and the dataset's empty context for CFG.  Built once;
+        `build_sample_fn` copies the EMA weights into it at every call.
+        Under a process mesh every rank must sample together: the gathers,
+        rings and sends need them all."""
         if self._pipeline is None:
             from ..serving import GenerationPipeline
 
             kwargs = dict(self.config.nnet)
             if not self.is_unet:
                 kwargs.update(attn_impl="infer", use_checkpoint=False)
+            if self.sp is not None:
+                kwargs.update(attn_impl="ring", sp=self.sp)
             nnet = get_nnet(kwargs.pop("name"), **kwargs)
+            self._place(nnet)
+            if self.pp > 1:
+                nnet = Pipelined(nnet, ProcessExchange(self.dp), self.num_micro)
             empty = getattr(self.dataset, "empty_context", None)
             self._pipeline = GenerationPipeline(self.config, nnet, self.vae, empty,
                                                 device=self.device)
@@ -491,16 +565,17 @@ class Trainer:
         ground-truth mode too, JAX l.574-604)."""
         pipe = self.sample_pipeline()
         steps = sample_steps or self.config.sample.sample_steps
-        names = [n for n, _ in pipe.nnet.named_parameters()]
-        params = [p for _, p in pipe.nnet.named_parameters()]
+        copy = pipe.nnet.nnet if isinstance(pipe.nnet, Pipelined) else pipe.nnet
+        names = [n for n, _ in copy.named_parameters()]
+        params = [p for _, p in copy.named_parameters()]
 
         def nchw(t):  # channel-last draws -> f32 NCHW on the device
             return None if t is None else self._on_device(t).float().permute(0, 3, 1, 2)
 
         @torch.no_grad()
         def sample_fn(cond, z, m0=None, panoptic=None, generator=None):
-            for p, name in zip(params, names):
-                p.copy_(self.state.ema[name])
+            for p, name in zip(params, names):  # whole over fsdp: a gather on every rank
+                p.copy_(sharding.full(self.state.ema[name]))
             cond = self._on_device(cond)
             if cond is not None and cond.is_floating_point():
                 cond = cond.float()
@@ -537,8 +612,8 @@ class Trainer:
         if native is not None:
             return prefetch_to_device(native, self.device, cast_f32=cast_f32,
                                       cast_int=cast_int)
-        procs = {} if self.dp is None else dict(process_index=self.dp.rank,
-                                                process_count=self.dp.world_size)
+        procs = {} if self.dp is None else dict(process_index=self.dp.data_rank,
+                                                process_count=self.dp.data_shards)
         loader = Loader(self.dataset.get_split("train", labeled=True),
                         batch_size=cfgt.batch_size,
                         num_workers=self.config.get("num_workers", 8), seed=self.config.seed,
@@ -565,7 +640,6 @@ class Trainer:
         `np.random.default_rng(seed + rank + start_step)`, as JAX draws it."""
         from ..data import native_loader
         from ..data.datasets import MSCOCO256Features
-        from ..parallel.mesh import ProcessGroupSP
 
         config = self.config
         if self.task != "t2i_discrete" or not config.get("native_loader", True):
@@ -573,6 +647,8 @@ class Trainer:
         if isinstance(self.sp, ProcessGroupSP) or not isinstance(self.dataset,
                                                                 MSCOCO256Features):
             return None
+        if self.dp is not None and self.dp.world_size != self.dp.data_shards:
+            return None  # tp or pp peers must read the same rows
         train_dir = os.path.join(self.dataset.path, "train")
         if not os.path.isdir(train_dir):
             return None
@@ -580,7 +656,7 @@ class Trainer:
             log.warning("the native C++ loader could not be built; the Python Loader "
                         "feeds the trainer")
             return None
-        rank, world = (0, 1) if self.dp is None else (self.dp.rank, self.dp.world_size)
+        rank, world = (0, 1) if self.dp is None else (self.dp.data_rank, self.dp.data_shards)
         h, w, c = config.z_shape
         enable_panoptic = config.nnet.get("enable_panoptic", True)
         mask_size = config.nnet.mask_size if enable_panoptic else None
@@ -613,8 +689,17 @@ class Trainer:
     def resume(self) -> bool:
         return ckpt_lib.resume(self.ckpt_root, self.state)
 
+    def save_checkpoint(self, block: bool = True) -> None:
+        """A checkpoint of the state at its step; over several processes
+        every rank enters the state's gathers and rank 0 writes."""
+        if self.dp is None:
+            ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=block)
+        else:
+            ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=block,
+                                     write=self.is_main)
+
     def _barrier(self) -> None:
-        """Every process of a data-parallel run waits here for the others."""
+        """Every process of a multi-process run waits here for the others."""
         if self.dp is not None:
             dist.barrier()  # NCCL's on the device `cli.init_distributed` bound
 
@@ -623,25 +708,20 @@ class Trainer:
         """Train to `config.train.n_steps` (or `max_steps`) from the latest
         checkpoint; returns the logged metrics.
 
-        On the main process, vis_callback(trainer, step) runs every
-        `train.eval_interval` steps (sample grids) and eval_callback(trainer,
-        step) every `train.save_interval` steps (FID), where it takes over the
-        checkpoint (best-FID retention), as in JAX `fit` (l.783-845); both live
-        in `evaluation/runner.py`.  The other processes of a data-parallel run
-        wait at a barrier after a callback (the process group's timeout,
-        `cli.DIST_TIMEOUT`, is long enough for a FID evaluation).  Without an
-        eval callback every `save_interval` step is checkpointed
-        asynchronously (`block=False`), and every write is on disk when `fit`
-        returns.  A sequence-parallel or fully sharded trainer cannot sample
-        yet (`sample_pipeline`), so under `mesh.sp > 1` or `mesh.fsdp > 1`
-        neither callback runs and every `save_interval` step is checkpointed
-        (under fsdp every rank enters the gather, rank 0 writes)."""
+        vis_callback(trainer, step) runs every `train.eval_interval` steps
+        (sample grids) and eval_callback(trainer, step) every
+        `train.save_interval` steps (FID), where it takes over the checkpoint
+        (best-FID retention), as in JAX `fit` (l.783-845); both live in
+        `evaluation/runner.py`.  Over several processes every rank runs them:
+        every rank samples (under a process mesh the sampler's gathers, rings
+        and sends need them all), and rank 0 alone writes the grid and the
+        samples and computes FID; the ranks then wait for each other at a
+        barrier (the process group's timeout, `cli.DIST_TIMEOUT`, is long
+        enough for a FID evaluation).  Without an eval callback every
+        `save_interval` step is checkpointed asynchronously (`block=False`;
+        every rank enters the state's gathers, rank 0 writes), and every
+        write is on disk when `fit` returns."""
         config = self.config
-        if (self.sp is not None or self.fsdp is not None) and (eval_callback or vis_callback):
-            log.warning("mesh.%s > 1: no FID or sample grids while training (sampling under "
-                        "it is not ported); checkpoints are kept at every save_interval",
-                        "sp" if self.sp is not None else "fsdp")
-            eval_callback = vis_callback = None
         self.resume()
         stream = self.data_stream(start_step=self.state.step)
         n_steps = max_steps or config.train.n_steps
@@ -670,19 +750,14 @@ class Trainer:
                     f.write(json.dumps(m) + "\n")
             called = False
             if vis_callback is not None and eval_interval and step % eval_interval == 0:
-                if self.is_main:
-                    vis_callback(self, step)
+                vis_callback(self, step)
                 called = True
             if save_interval and step % save_interval == 0:
                 if eval_callback is not None:
-                    if self.is_main:
-                        eval_callback(self, step)
+                    eval_callback(self, step)
                     called = True
-                elif self.fsdp is not None:  # every rank enters the gather, rank 0 writes
-                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=False,
-                                             write=self.is_main)
-                elif self.is_main:
-                    ckpt_lib.save_checkpoint(self.ckpt_root, self.state, block=False)
+                else:
+                    self.save_checkpoint(block=False)
             if called:
                 self._barrier()
         ckpt_lib.wait_for_saves()

@@ -13,10 +13,11 @@ single process's; only rank 0 writes (JAX l.101, 834, 846), so rank 1's own
 workdir stays absent; and a fourth step, both ranks resuming from rank 0's
 checkpoint, equals the single process's fourth.  The processes have 120 s.
 
-Every other layout the port cannot run raises `NotImplementedError` naming
-ROADMAP Queue 1 entry 4, never training silently; `mesh.fsdp = 2` in one
-process raises `ValueError` (it needs two processes; FSDP itself is held in
-test_torch_port_fsdp_gloo.py).
+Every other layout is built over the world it finds, with its coordinates
+in JAX's (pp, dp, fsdp, sp, tp) order and its rows, or raises `ValueError`
+when that world cannot hold it (the world faked by monkeypatching `dist`);
+the layouts themselves are held in test_torch_port_fsdp_gloo.py,
+_tensor_parallel.py, _pipeline_gloo.py and _sp_layouts.py.
 """
 import json
 import os
@@ -118,37 +119,43 @@ class _World:
         monkeypatch.setattr(dist, "get_rank", lambda *a, **k: rank)
 
 
-@pytest.mark.parametrize("mesh,world", [
-    (dict(dp=2), 1),  # an explicit dp different from the world
-    (dict(dp=3), 2),
-    (dict(dp=1), 2),
-    (dict(dp=2, sp=2, sp_mode="in_process"), 1),  # dp beside sp
-    (dict(dp=2, sp=2, sp_mode="process_group"), 4),
-    (dict(sp=2, sp_mode="process_group"), 4),  # a world larger than sp
-    (dict(fsdp=2), 1),
-    (dict(tp=2), 1),
-    (dict(pp=2), 1),
+# Each layout either is built over the (faked) world, rank 3 of it: (its
+# coordinates (pp, dp, fsdp, sp, tp), its rows of a global batch of 64, the
+# sp rank and ring of its global ranks) or raises ValueError saying why the
+# world cannot hold it.
+@pytest.mark.parametrize("mesh,world,want", [
+    (dict(dp=2), 1, "dp = 2 is not the world of 1 processes"),
+    (dict(dp=3), 2, "dp = 3 is not the world of 2 processes"),
+    (dict(dp=1), 2, "dp = 1 is not the world of 2 processes"),
+    (dict(dp=2, sp=2, sp_mode="in_process"), 1, "dp = 2 is not the world of 1 processes"),
+    (dict(dp=2, sp=2, sp_mode="process_group"), 4, ((0, 1, 0, 1, 0), slice(32, 64), 1, [2, 3])),
+    (dict(sp=2, sp_mode="process_group"), 4, ((0, 1, 0, 1, 0), slice(32, 64), 1, [2, 3])),
+    (dict(fsdp=2), 1, "fsdp = 2 needs 2 processes, got 1"),
+    (dict(tp=2), 1, "tp = 2 needs 2 processes, got 1"),
+    (dict(pp=2), 1, "pp = 2 needs 2 processes, got 1"),
 ])
-def test_layouts_the_port_cannot_run_raise(monkeypatch, mesh, world):
+def test_layouts_the_port_cannot_run_raise(monkeypatch, mesh, world, want):
     if world > 1:
-        _World(monkeypatch, world)
-    if "fsdp" in mesh:  # a layout the port runs, over enough processes
-        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
+        _World(monkeypatch, world, rank=3)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
             mesh_lib.from_mesh(mesh)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
-        mesh_lib.from_mesh(mesh)
+    layout = mesh_lib.from_mesh(mesh)
+    coords, rows, sp_rank, ring = want
+    assert tuple(layout.coords[a] for a in mesh_lib.AXES) == coords
+    assert layout.process_batch_slice(64) == rows
+    assert isinstance(layout.seq, mesh_lib.ProcessGroupSP)
+    assert (layout.seq.rank, layout.seq.peers) == (sp_rank, ring)
 
 
 @pytest.mark.parametrize("field,value", [("dp", 2), ("fsdp", 2), ("tp", 2), ("pp", 2)])
 def test_trainer_refuses_a_layout_before_training(tmp_path, field, value):
     config = _config(3)
     config.mesh[field] = value
-    if field == "fsdp":  # fsdp = 2 in one process
-        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
-            Trainer(config, str(tmp_path), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
+    # one process cannot hold any of them
+    match = "is not the world of 1" if field == "dp" else f"{field} = 2 needs 2 processes"
+    with pytest.raises(ValueError, match=match):
         Trainer(config, str(tmp_path), device="cpu")
 
 
@@ -163,11 +170,19 @@ def test_fsdp_layouts_the_world_cannot_hold_raise(monkeypatch, mesh, world, matc
         mesh_lib.from_mesh(mesh)
 
 
-@pytest.mark.parametrize("mesh", [dict(fsdp=2, sp=2), dict(fsdp=2, tp=2), dict(fsdp=2, pp=2)])
-def test_fsdp_beside_sp_tp_or_pp_raises(monkeypatch, mesh):
-    _World(monkeypatch, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
-        mesh_lib.from_mesh(mesh)
+# fsdp beside sp, tp or pp over four processes, rank 3: (pp, dp, fsdp, sp, tp)
+@pytest.mark.parametrize("mesh,coords", [
+    (dict(fsdp=2, sp=2), (0, 0, 1, 1, 0)),
+    (dict(fsdp=2, tp=2), (0, 0, 1, 0, 1)),
+    (dict(fsdp=2, pp=2), (1, 0, 1, 0, 0)),
+])
+def test_fsdp_beside_sp_tp_or_pp_raises(monkeypatch, mesh, coords):
+    _World(monkeypatch, 4, rank=3)
+    layout = mesh_lib.from_mesh(mesh)
+    assert isinstance(layout, mesh_lib.FullyShardedDataParallel)
+    assert tuple(layout.coords[a] for a in mesh_lib.AXES) == coords
+    assert (layout.dp, layout.fsdp) == (1, 2)
+    assert layout.process_batch_slice(64) == slice(32, 64)  # its fsdp index's rows
 
 
 def test_fsdp_layout_follows_the_world(monkeypatch):

@@ -184,8 +184,9 @@ def test_cli_eval_and_sample(tmp_path):
 
 
 def test_cli_train_under_sp_checkpoints_without_sampling(tmp_path):
-    """A sequence-parallel trainer cannot sample yet: `train` at mesh.sp = 2
-    runs neither callback and checkpoints at every save_interval."""
+    """`train` at mesh.sp = 2 in process samples under sp: its vis
+    callback writes a grid every eval_interval, and the FID-gated callback
+    (FID assets missing) checkpoints at every save_interval."""
     wd = tmp_path / "sp"
     history = cli.main(["train", "--config=synthetic_tiny", "--device=cpu", f"--workdir={wd}",
                         "--config.num_workers=0", "--config.mesh.sp=2",
@@ -194,7 +195,8 @@ def test_cli_train_under_sp_checkpoints_without_sampling(tmp_path):
                         "--config.train.save_interval=1"])
     assert [m["step"] for m in history] == [1, 2]
     assert sorted(os.listdir(wd / "ckpts")) == ["1.ckpt", "2.ckpt"]
-    assert not (wd / "train_samples").exists()
+    assert sorted(os.listdir(wd / "train_samples")) == ["1.png", "1_mask.png", "2.png",
+                                                         "2_mask.png"]
 
 
 def test_entry_points_default_to_the_card(tmp_path):

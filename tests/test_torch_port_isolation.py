@@ -34,6 +34,11 @@ DATA_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "scripts.extract_mscoco_feature", "scripts.extract_mscoco_stable_diffusion",
     "scripts.extract_imagenet_feature", "scripts.extract_empty_feature",
     "scripts.extract_test_prompt_feature", "scripts.convert_checkpoint")]
+# the modules of the rest of distributed (the process mesh, tensor
+# parallelism, the pipeline, the parameters' placement), which the walk must reach
+MESH_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "parallel.mesh", "parallel.tensor", "parallel.pipeline", "parallel.placement",
+    "parallel.sharding")]
 # packages the port must not come to need: CLIP's tokenizer and weights are read
 # by its own code
 NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
@@ -52,6 +57,7 @@ print("EVAL:", all(m in sys.modules for m in {EVAL_MODULES!r}))
 print("UNET:", all(m in sys.modules for m in {UNET_MODULES!r}))
 print("DDP:", all(m in sys.modules for m in {DDP_MODULES!r}))
 print("DATA:", all(m in sys.modules for m in {DATA_MODULES!r}))
+print("MESH:", all(m in sys.modules for m in {MESH_MODULES!r}))
 print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
@@ -68,6 +74,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "UNET: True" in out.stdout, out.stdout
     assert "DDP: True" in out.stdout, out.stdout
     assert "DATA: True" in out.stdout, out.stdout
+    assert "MESH: True" in out.stdout, out.stdout
     assert "LOADED: []" in out.stdout, out.stdout
 
 

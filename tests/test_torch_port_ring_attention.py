@@ -67,7 +67,8 @@ def test_in_process_layout_round_trips():
     # after one hop, shard s holds shard s-1's keys; at L=7 padded to 8 the
     # last shard has one real token
     assert sp.sources(1) == [3, 0, 1, 2]
-    assert sp.nvalid(1, 2, 7, 8, torch.device("cpu")).tolist() == [1, 1, 2, 2, 2, 2, 2, 2]
+    assert sp.nvalid(1, sp.contiguous_counts(7), 8, torch.device("cpu")).tolist() == [
+        1, 1, 2, 2, 2, 2, 2, 2]
 
 
 def test_ring_plain_equals_ring_on_cpu():
@@ -91,8 +92,9 @@ def test_ring_without_context_warns_and_takes_the_unsharded_path(caplog):
 
 
 @pytest.mark.parametrize("mesh,error,match", [
-    (dict(sp=2, dp=2), NotImplementedError, "distributed slice"),
-    (dict(sp=2, tp=2), NotImplementedError, "distributed slice"),
+    # dp or tp beside sp run over processes; one process cannot hold them
+    (dict(sp=2, dp=2, sp_mode="in_process"), ValueError, "not the world of 1 processes"),
+    (dict(sp=2, tp=2, sp_mode="in_process"), ValueError, "tp = 2 needs 2 processes"),
     (dict(sp=2, sp_mode="ring"), ValueError, "sp_mode"),
     (dict(sp=2, sp_mode="process_group"), RuntimeError, "torchrun"),
 ])
@@ -143,7 +145,34 @@ def test_sharded_uvit_t2i_matches_jax_ring_model():
 
 
 def test_sharded_uvit_t2i_refuses_a_stream_that_does_not_divide():
-    model = UViTT2I(**GEOM, attn_impl="ring", sp=InProcessSP(3)).eval()  # 24 | 3, 16 does not
-    with pytest.raises(NotImplementedError, match="mask stream.*item 16"):
-        model(torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 16),
-              mask_token=torch.zeros(1, 8, 16, 16))
+    """Streams that do not divide sp are padded at their end, the pad keys
+    masked and the pad rows dropped: the sharded model equals the unsharded
+    one, forward and gradient.  sp = 3: the mask stream's 16 tokens pad to
+    18; num_clip_token = 6 at sp = 2 and 4: the image stream's 23 tokens
+    pad, so a mask-stream shard holds x pad rows before real m rows and is
+    reordered for the ring."""
+    rng = np.random.default_rng(5)
+    for clip_tokens, sp in ((7, 3), (6, 2), (6, 4)):
+        geom = dict(GEOM, num_clip_token=clip_tokens)
+        torch.manual_seed(6)
+        plain = UViTT2I(**geom)
+        with torch.no_grad():
+            for zc in plain.zero_convs.values():
+                zc.conv.weight.normal_(0, 0.05)
+        sharded = UViTT2I(**geom, attn_impl="ring", sp=InProcessSP(sp))
+        sharded.load_state_dict(plain.state_dict())
+        args = (torch.from_numpy(rng.standard_normal((2, 4, 8, 8)).astype(np.float32)),
+                torch.tensor([10.0, 900.0]),
+                torch.from_numpy(rng.standard_normal((2, clip_tokens, 16)).astype(np.float32)))
+        mask = torch.from_numpy(rng.standard_normal((2, 8, 16, 16)).astype(np.float32))
+        outs = []
+        for model in (plain, sharded):
+            noise, pred = model(*args, mask_token=mask)
+            ((noise ** 2).sum() + (pred ** 2).sum()).backward()
+            outs.append((noise.detach(), pred.detach(),
+                         {n: p.grad.clone() for n, p in model.named_parameters()}))
+        for a, b in zip(outs[0][:2], outs[1][:2]):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-5)
+        for name, g in outs[0][2].items():
+            np.testing.assert_allclose(outs[1][2][name].numpy(), g.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{clip_tokens}, {sp}: {name}")

@@ -14,8 +14,8 @@ random draws: loss, grad_norm, the updated parameters and the EMA at rtol
 and of `test_torch_port_train_sp.py`; the port with `use_checkpoint`
 ('save_attn', whose replay keeps the ring's output) too, against the same
 JAX steps (a remat changes no value).  A stream that does not divide
-sp (the unconditional pixel U-ViT's 17 tokens, as CIFAR-10's 257) raises,
-naming ROADMAP Queue 1 entry 4.
+sp (the unconditional pixel U-ViT's 17 tokens, as CIFAR-10's 257) is
+padded: its step equals the unsharded one.
 """
 import jax
 import jax.numpy as jnp
@@ -73,9 +73,22 @@ def test_three_sp_uvit_steps_match_jax_sp_trainer(ref, tmp_path, use_checkpoint)
 
 
 def test_a_stream_that_does_not_divide_sp_raises(tmp_path):
-    config = get_config("synthetic_tiny_pixel")
-    config.mesh.update(sp=2, sp_mode="in_process")
-    config.num_workers = 0
-    trainer = Trainer(config, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="17 tokens.*Queue 1 entry 4"):
-        trainer.fit(max_steps=1)
+    """17 tokens at sp = 2 pad to 18: one step of the sharded trainer (the
+    pad key masked in every hop, the pad row dropped at the gather) equals
+    the unsharded trainer's on the same batch and draws."""
+    out = []
+    for sp in (1, 2):
+        config = get_config("synthetic_tiny_pixel")
+        config.mesh.update(sp=sp, sp_mode="in_process")
+        config.num_workers = 0
+        trainer = Trainer(config, str(tmp_path / str(sp)), device="cpu")
+        assert (trainer.sp is None) == (sp == 1)
+        batch = next(iter(trainer.data_stream()))
+        metrics = trainer.loss_and_grads(batch)
+        out.append((metrics, {n: p.grad.clone() for n, p in trainer.state.params.items()}))
+    for k, v in out[0][0].items():
+        np.testing.assert_allclose(float(out[1][0][k]), float(v), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    for name, g in out[0][1].items():
+        np.testing.assert_allclose(out[1][1][name].numpy(), g.numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)

@@ -121,9 +121,9 @@ def test_missing_pretrained_raises(tmp_path):
 
 @pytest.mark.parametrize("field,value,match", [
     ("task", "pixel_sde", "slice"),
-    ("mesh.tp", 2, "distributed"),
-    ("mesh.pp", 2, "distributed"),
-    ("mesh.fsdp", 2, "Queue 1 entry 4"),
+    ("mesh.tp", 2, "mesh.tp = 2 needs 2 processes, got 1"),
+    ("mesh.pp", 2, "mesh.pp = 2 needs 2 processes, got 1"),
+    ("mesh.fsdp", 2, "mesh.fsdp = 2 needs 2 processes, got 1"),
     ("optimizer.name", "lamb", "adamw"),
 ])
 def test_later_slices_raise(tmp_path, field, value, match):
@@ -134,8 +134,8 @@ def test_later_slices_raise(tmp_path, field, value, match):
         config[node][path[0]] = value
     else:
         config[node] = value
-    if field == "mesh.fsdp":  # ported since; one process cannot hold fsdp = 2
-        with pytest.raises(ValueError, match="fsdp = 2 needs 2 processes"):
+    if node == "mesh":  # layouts the port runs over processes; one cannot hold them
+        with pytest.raises(ValueError, match=match):
             Trainer(config, str(tmp_path), device="cpu")
         return
     with pytest.raises(NotImplementedError, match=match):
