@@ -274,15 +274,24 @@ def _agree(trainer: Trainer, value):
     return box[0]
 
 
+def _samples_here(trainer: Trainer) -> bool:
+    """Whether this rank samples: rank 0, and every rank of a layout whose
+    sampler needs them all (the gathers, rings and sends of fsdp, sp, tp
+    and pp); under plain data parallelism the sampler has no collectives."""
+    return trainer.is_main or not trainer.dp.pure_data_parallel
+
+
 def make_vis_callback(n_images: int = 16, sample_steps: int = 50):
     """Periodic sample-grid writer (the reference's wandb image grids,
     `train.py:166-178`, `train_t2i_discrete.py:637-689`): writes
     workdir/train_samples/{step}.png (+ {step}_mask.png for panoptic).
-    Every rank of a multi-process trainer samples the same grid; rank 0
-    writes it."""
+    Under a process mesh every rank whose sampler needs it
+    (`_samples_here`) samples the same grid; rank 0 writes it."""
     cache = {}
 
     def callback(trainer: Trainer, step: int):
+        if not _samples_here(trainer):
+            return
         config = trainer.config
         n = min(n_images, config.sample.mini_batch_size)
         if "fn" not in cache:
@@ -324,9 +333,10 @@ def make_fid_gated_callback(n_samples: Optional[int] = None,
     `train.py:182-196`, `train_t2i_discrete.py:694-710`): every
     save_interval, sample + score, and keep the checkpoint only when FID
     improves; without the FID assets, save every checkpoint and sample
-    nothing.  Every rank of a multi-process trainer samples and enters the
-    checkpoint's gathers; rank 0 writes the samples and the checkpoint,
-    computes FID and decides."""
+    nothing.  Every rank of a multi-process trainer enters the checkpoint's
+    gathers, and samples where its sampler needs it (`_samples_here`);
+    rank 0 writes the samples and the checkpoint, computes FID and
+    decides."""
     best = {"fid": None}
     cache: dict = {}  # one sampler reused across eval rounds
 
@@ -340,9 +350,10 @@ def make_fid_gated_callback(n_samples: Optional[int] = None,
         n = n_samples or config.sample.n_samples
         bs = config.sample.mini_batch_size
         sample_dir = os.path.join(trainer.workdir, "samples")
-        sample_fn, use_panoptic = make_eval_sample_fn(trainer, config.sample.sample_steps, bs,
-                                                      cache=cache)
         fid, metrics = None, {}
+        if _samples_here(trainer):
+            sample_fn, use_panoptic = make_eval_sample_fn(trainer, config.sample.sample_steps,
+                                                          bs, cache=cache)
         if trainer.is_main:
             metrics = sample2dir(sample_dir, n, bs, sample_fn,
                                  unpreprocess_fn=trainer.dataset.unpreprocess,
@@ -352,7 +363,7 @@ def make_fid_gated_callback(n_samples: Optional[int] = None,
             fid = _score_fid(trainer, sample_dir, trainer.workdir, n, metrics, step=step,
                              inception_path=inception_path)
             log.info(f"eval@{step}: {metrics}")
-        else:  # the same batches, for the collectives; rank 0 writes them
+        elif _samples_here(trainer):  # the same batches, for the collectives
             for _ in amortize(n, bs):
                 sample_fn(bs)
         fid = _agree(trainer, fid)

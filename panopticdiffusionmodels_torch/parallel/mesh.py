@@ -178,7 +178,7 @@ class InProcessSP(SequenceParallel):
             kv.shape)
 
 
-def _host_staged(group) -> bool:
+def host_staged(group) -> bool:
     """Whether card tensors cross `group` through host memory: gloo's
     point-to-point ops read and write plain host pointers."""
     return dist.get_backend(group) == dist.Backend.GLOO
@@ -187,7 +187,7 @@ def _host_staged(group) -> bool:
 def p2p(sends: Sequence[tuple], recvs: Sequence[tuple], group=None) -> None:
     """Post every (tensor, global peer) send and receive at once and wait for
     them all; card tensors go through host copies over gloo."""
-    staged = any(t.is_cuda for t, _ in (*sends, *recvs)) and _host_staged(group)
+    staged = any(t.is_cuda for t, _ in (*sends, *recvs)) and host_staged(group)
     move = (lambda t: t.cpu()) if staged else (lambda t: t)
     bufs = [(move(t.contiguous()), peer) for t, peer in sends]
     outs = [(torch.empty(t.shape, dtype=t.dtype) if staged else t, peer) for t, peer in recvs]
@@ -251,33 +251,20 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None,
 
 
 class ProcessGroupSP(SequenceParallel):
-    """One process per rank of the ring: the layout's sp group, or without
-    a layout the default group, whose world is the sp ring."""
+    """One process per rank of the ring: the layout's sp group, its peers
+    addressed by their global ranks."""
 
     mode = "process_group"
 
-    def __init__(self, sp: int, layout: Optional["DataParallel"] = None):
-        if not dist.is_initialized():
-            raise RuntimeError(
-                f"mesh.sp={sp} with sp_mode='process_group' needs torch.distributed "
-                f"initialised with {sp} processes a ring (run under torchrun "
-                f"--nproc_per_node={sp}); on one device set mesh.sp_mode='in_process'")
-        if layout is None:
-            world = dist.get_world_size()
-            if world != sp:
-                raise ValueError(f"mesh.sp={sp} with sp_mode='process_group' needs a world of "
-                                 f"{sp} processes, got {world}")
-            super().__init__(sp, dist.get_rank())
-            self.peers = list(range(sp))
-        else:
-            super().__init__(sp, layout.coords["sp"])
-            self.peers = layout.peers("sp")
+    def __init__(self, sp: int, layout: "DataParallel"):
+        super().__init__(sp, layout.coords["sp"])
+        self.peers = layout.peers("sp")
         self.layout = layout
         self.world_size = sp
 
     @property
     def group(self):
-        return None if self.layout is None else self.layout.group("sp")
+        return self.layout.group("sp")
 
     def sources(self, hop):
         return [(self.rank - hop) % self.sp]
@@ -317,13 +304,18 @@ class DataParallel:
             raise ValueError(f"mesh {self.shape} does not cover {world_size} processes")
         self.world_size = world_size
         self.rank = rank
-        self.coords, r = {}, rank
-        for axis in reversed(AXES):
-            self.coords[axis] = r % self.shape[axis]
-            r //= self.shape[axis]
+        self.coords = self.coords_of(rank)
         self.pp, self.dp, self.fsdp, self.tp = (self.shape[a] for a in ("pp", "dp", "fsdp", "tp"))
         self.seq: Optional[SequenceParallel] = None
         self._meshes: Dict[str, object] = {}
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of global rank `rank`: row-major, pp outermost."""
+        coords = {}
+        for axis in reversed(AXES):
+            coords[axis] = rank % self.shape[axis]
+            rank //= self.shape[axis]
+        return {a: coords[a] for a in AXES}
 
     @property
     def is_main(self) -> bool:
@@ -342,6 +334,14 @@ class DataParallel:
     def data_rank(self) -> int:
         """This process's shard of the batch: its (dp, fsdp) index."""
         return self.coords["dp"] * self.fsdp + self.coords["fsdp"]
+
+    def data_peers(self, shard: Optional[int] = None) -> List[int]:
+        """The global ranks that load batch shard `shard` (this process's by
+        default): those that differ in pp, sp or tp alone, which JAX feeds
+        the same rows."""
+        shard = self.data_rank if shard is None else shard
+        coords = map(self.coords_of, range(self.world_size))
+        return [r for r, c in enumerate(coords) if c["dp"] * self.fsdp + c["fsdp"] == shard]
 
     def stride(self, axis: str) -> int:
         return math.prod(self.shape[a] for a in AXES[AXES.index(axis) + 1:])
@@ -375,19 +375,27 @@ class DataParallel:
         return self._meshes["mesh"]
 
     def init_groups(self, device_type: str) -> None:
-        """Build the process groups of every axis now (every rank must call
-        it at the same point); a no-op for plain data parallelism."""
+        """Build the process groups of every axis now, and of the data peers
+        where a shard has several (every rank must call it at the same
+        point); a no-op for plain data parallelism."""
         if not self.pure_data_parallel:
             self.device_mesh(device_type)
+            if self.world_size > self.data_shards:
+                for shard in range(self.data_shards):  # every rank builds every group
+                    group = dist.new_group(self.data_peers(shard))
+                    if shard == self.data_rank:
+                        self._meshes["data"] = group
 
     def group(self, axis: str):
-        """The process group of `axis` (its size above 1); needs `init_groups`."""
-        if self.shape[axis] == 1:
+        """The process group of `axis` (its size above 1), or with 'data' of
+        `data_peers()` (more than one); needs `init_groups`."""
+        size = self.world_size // self.data_shards if axis == "data" else self.shape[axis]
+        if size == 1:
             raise ValueError(f"mesh axis {axis!r} has size 1")
         if not self._meshes:
             raise RuntimeError("DataParallel.group: call init_groups(device_type) first, on "
                                "every rank")
-        return self._meshes["mesh"].get_group(axis)
+        return self._meshes["data"] if axis == "data" else self._meshes["mesh"].get_group(axis)
 
     def fsdp_mesh(self, device_type: str):
         """The mesh `fully_shard` shards over: ('fsdp',), or ('dp', 'fsdp')
@@ -429,7 +437,10 @@ def from_mesh(mesh) -> Union[None, DataParallel, SequenceParallel]:
     in_process = sp > 1 and mode == "in_process"
     sp_procs = 1 if in_process else sp
     if sp_procs > 1 and not dist.is_initialized():
-        ProcessGroupSP(sp)  # raises with how to launch it
+        raise RuntimeError(
+            f"mesh.sp={sp} with sp_mode='process_group' needs torch.distributed "
+            f"initialised with {sp} processes a ring (run under torchrun "
+            f"--nproc_per_node={sp}); on one device set mesh.sp_mode='in_process'")
     sizes = dict(pp=pp, dp=dp, fsdp=fsdp, sp=sp_procs, tp=tp)
     inner = pp * fsdp * sp_procs * tp
     need = inner * max(dp, 1)

@@ -36,13 +36,14 @@ images (`pixel_sde`, unconditional or class-conditional, reference
     with the config's VAE when its file exists;
   * the layout is `parallel.mesh.from_mesh`'s for the world it finds, JAX's
     (pp, dp, fsdp, sp, tp) mesh laid over the processes.  Every process
-    loads its (dp, fsdp) shard's rows of the GLOBAL batch `train.batch_size`
+    takes its (dp, fsdp) shard's rows of the GLOBAL batch `train.batch_size`
     and keeps its rows of the global batch's draws (its pp, sp and tp peers
-    load and draw the same), and the metrics are averaged over the data
-    shards, so a step computes what one process computes on the global
-    batch.  The default mesh (dp = -1) over several processes (`torchrun`)
-    trains data parallel through `DistributedDataParallel` (every
-    micro-batch but the last under `no_sync()`);
+    take the rows the first of them reads, and draw the same), and the
+    metrics are averaged over the data shards, so a step computes what one
+    process computes on the global batch.  The default mesh (dp = -1) over
+    several processes (`torchrun`) trains data parallel through
+    `DistributedDataParallel` (every micro-batch but the last under
+    `no_sync()`);
   * `mesh.fsdp > 1` shards the network over fsdp (and replicates it over
     dp: HSDP) before the train state is built, so the optimizer moments and
     the EMA are sharded with it (`parallel/sharding.py`, FSDP2; its gradient
@@ -112,9 +113,9 @@ from ..parallel import tensor as tp_lib
 from ..parallel.mesh import (
     DataParallel,
     FullyShardedDataParallel,
-    ProcessGroupSP,
     SequenceParallel,
     from_mesh,
+    host_staged,
 )
 from ..parallel.pipeline import Pipelined, ProcessExchange, keep_stage
 from ..parallel.placement import Placement
@@ -601,7 +602,46 @@ class Trainer:
         the Python `Loader` with its index-only skip; then the device feed
         (uint8 panoptic ids by default, labels as they are, optional bf16
         float fields, `train.transfer_dtype`).  Sets `input_pipeline` to
-        'native' or 'python'."""
+        'native' or 'python'.
+
+        Where several processes load one shard of the batch (they differ in
+        pp, sp or tp alone, and JAX feeds them the same rows) the first of
+        them reads it and hands it to the others (`_shared_stream`): both
+        loaders draw the caption and the CFG drop at random, and the native
+        loader's threads race for the order of the batches, so peers reading
+        on their own would train on different rows."""
+        peers = [] if self.dp is None else self.dp.data_peers()
+        if len(peers) > 1:
+            return self._shared_stream(start_step, peers[0])
+        return self._read_stream(start_step)
+
+    def _shared_stream(self, start_step: int, src: int):
+        """`_read_stream` on global rank `src`, each batch broadcast over the
+        data peers' group to the others, with the pipeline it came from
+        (card tensors through host copies over gloo)."""
+        group = self.dp.group("data")
+        staged = self.device.type == "cuda" and host_staged(group)
+        stream = self._read_stream(start_step) if self.dp.rank == src else None
+        while True:
+            batch = None if stream is None else next(stream)
+            fields = batch if isinstance(batch, tuple) else (batch,)
+            box = [None if stream is None else (
+                self.input_pipeline, isinstance(batch, tuple),
+                [(t.shape, t.dtype) for t in fields])]
+            dist.broadcast_object_list(box, src=src, group=group)
+            self.input_pipeline, is_tuple, meta = box[0]
+            if stream is None:
+                fields = tuple(torch.empty(shape, dtype=dtype, device=self.device)
+                               for shape, dtype in meta)
+            for t in fields:
+                buf = t.cpu() if staged else t
+                dist.broadcast(buf, src=src, group=group)
+                if staged and stream is None:
+                    t.copy_(buf)
+            yield fields if is_tuple else fields[0]
+
+    def _read_stream(self, start_step: int):
+        """This process's batches, read from its loader (see `data_stream`)."""
         cfgt = self.config.train
         cast_f32 = torch.bfloat16 if cfgt.get("transfer_dtype", "") == "bfloat16" else None
         cast_int = (np.uint8 if self.config.nnet.get("enable_panoptic", False)
@@ -627,28 +667,26 @@ class Trainer:
         """The native C++ loader's batches (`data/native_loader.py`), JAX
         `Trainer._native_stream` (l.708-777), or None where it does not
         apply: a task other than t2i_discrete, `config.native_loader` False,
-        a dataset other than `MSCOCO256Features` with a `train/` directory,
-        or `ProcessGroupSP`, whose ranks must read the same rows while the
-        native loader gives each process a disjoint subset of the files.
-        When the library cannot be built it logs a warning and returns None.
+        or a dataset other than `MSCOCO256Features` with a `train/`
+        directory.  When the library cannot be built it logs a warning and
+        returns None.
 
-        Each data-parallel process reads its strided subset of the files and
-        its rows of the global batch.  The C++ loader cannot fast-forward, so
-        its seed folds in the start step (seed + rank + 1_000_003 * step): a
-        resumed run gets a fresh shuffle.  The CFG drop to the empty context
-        (`dataset.p_uncond`) is drawn here, from
-        `np.random.default_rng(seed + rank + start_step)`, as JAX draws it."""
+        Each batch shard (the (dp, fsdp) index) reads its strided subset of
+        the files and its rows of the global batch; under pp, sp or tp one
+        process of each shard reads it for its peers (`data_stream`).  The
+        C++ loader cannot fast-forward, so its seed folds in the start step
+        (seed + rank + 1_000_003 * step): a resumed run gets a fresh
+        shuffle.  The CFG drop to the empty context (`dataset.p_uncond`) is
+        drawn here, from `np.random.default_rng(seed + rank + start_step)`,
+        as JAX draws it."""
         from ..data import native_loader
         from ..data.datasets import MSCOCO256Features
 
         config = self.config
         if self.task != "t2i_discrete" or not config.get("native_loader", True):
             return None
-        if isinstance(self.sp, ProcessGroupSP) or not isinstance(self.dataset,
-                                                                MSCOCO256Features):
+        if not isinstance(self.dataset, MSCOCO256Features):
             return None
-        if self.dp is not None and self.dp.world_size != self.dp.data_shards:
-            return None  # tp or pp peers must read the same rows
         train_dir = os.path.join(self.dataset.path, "train")
         if not os.path.isdir(train_dir):
             return None
@@ -714,13 +752,14 @@ class Trainer:
         (best-FID retention), as in JAX `fit` (l.783-845); both live in
         `evaluation/runner.py`.  Over several processes every rank runs them:
         every rank samples (under a process mesh the sampler's gathers, rings
-        and sends need them all), and rank 0 alone writes the grid and the
-        samples and computes FID; the ranks then wait for each other at a
-        barrier (the process group's timeout, `cli.DIST_TIMEOUT`, is long
-        enough for a FID evaluation).  Without an eval callback every
-        `save_interval` step is checkpointed asynchronously (`block=False`;
-        every rank enters the state's gathers, rank 0 writes), and every
-        write is on disk when `fit` returns."""
+        and sends need them all; under plain data parallelism rank 0 alone),
+        and rank 0 alone writes the grid and the samples and computes FID;
+        the ranks then wait for each other at a barrier (the process group's
+        timeout, `cli.DIST_TIMEOUT`, is long enough for a FID evaluation).
+        Without an eval callback every `save_interval` step is checkpointed
+        asynchronously (`block=False`; every rank enters the state's
+        gathers, rank 0 writes), and every write is on disk when `fit`
+        returns."""
         config = self.config
         self.resume()
         stream = self.data_stream(start_step=self.state.step)

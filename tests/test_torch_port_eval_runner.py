@@ -22,6 +22,7 @@ import torch
 from panopticdiffusionmodels_torch import cli
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.evaluation import fid, inception, runner
+from panopticdiffusionmodels_torch.parallel.mesh import DataParallel
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
@@ -108,6 +109,26 @@ def test_vis_callback_writes_grids(tmp_path, name):
     runner.make_vis_callback(n_images=4, sample_steps=2)(trainer, 7)
     written = sorted(os.listdir(os.path.join(trainer.workdir, "train_samples")))
     assert written == (["7.png", "7_mask.png"] if name == "synthetic_tiny" else ["7.png"])
+
+
+def test_ranks_past_0_sample_nothing_under_plain_data_parallelism(tmp_path, assets,
+                                                                  monkeypatch):
+    """Under plain data parallelism the sampler has no collectives, so rank
+    1 of two builds no sampler in either callback and writes nothing; it
+    still takes rank 0's FID (None here) and enters the checkpoint."""
+    trainer = Trainer(tiny(fid_stat=assets[1]), str(tmp_path / "wd"), device="cpu")
+    trainer.dp, trainer.is_main = DataParallel(2, 1), False
+    monkeypatch.setattr(runner, "_agree", lambda t, value: value)
+    monkeypatch.setattr(trainer, "build_sample_fn", lambda *a, **k: pytest.fail("sampled"))
+    monkeypatch.setattr(runner, "make_eval_sample_fn", lambda *a, **k: pytest.fail("sampled"))
+    saved = []
+    monkeypatch.setattr(trainer, "save_checkpoint", lambda: saved.append(True))
+    trainer.state.step = 1
+    runner.make_vis_callback(n_images=4, sample_steps=2)(trainer, 1)
+    assert runner.make_fid_gated_callback(inception_path=assets[0])(trainer, 1) == {}
+    assert saved == [True]
+    assert not (tmp_path / "wd" / "train_samples").exists()
+    assert not (tmp_path / "wd" / "samples").exists()
 
 
 def test_fit_runs_the_callbacks_at_their_intervals(tmp_path):

@@ -17,59 +17,57 @@ global batch of 16 in f32 and held at rtol / atol 1e-5
     process's fourth; the sampler's images and mask on both stages equal
     one process's, and only rank 0 writes the grid;
   * pp = 2 with `train.pp_microbatches=4`, with `train.grad_accum=2`, and
-    beside dp = 2 over four processes: three steps each, against one
-    process.
+    beside dp = 2 over four processes: three steps each on the same batches,
+    against one process; the first two also against the JAX `Trainer` at
+    mesh.pp = 2 with the same `pp_microbatches` / `grad_accum` (whose draws
+    grad_accum takes: the JAX step splits its key over the micro-batches).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.parallel.pipeline import owner_stage
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 import torch_port_mesh_common as mc
 import torch_port_mesh_worker as worker
-from torch_port_train_common import batches, configure, jax_draws, to_port
+from torch_port_train_common import (batches, jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer,
+                                     to_port)
 
 torch.set_num_threads(1)
 
 STEPS = 3
+JAX_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pp")
-    jt = JaxTrainer(configure(jax_get_config("synthetic_tiny"), False, "", dict(pp=2),
-                              nnet=dict(scan_blocks=True)), str(tmp / "jax"))
+    scan = dict(scan_blocks=True)
+    jt = jax_mesh_trainer(tmp / "jax", dict(pp=2), nnet=scan)
     init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
     raw = batches(STEPS + 1)
-    steps = [mc.as_tensors(b, jax_draws(jax.random.fold_in(jt.rng, i + 1), b))
-             for i, b in enumerate(raw)]
+    steps = [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw)]
     one_ckpt = tmp / "pp_one_ckpts" / f"{STEPS}.ckpt"
     pp_spec = dict(init=init, steps=steps[:STEPS], sample=mc.sample_inputs(),
                    config=dict(mesh=dict(pp=2)), resume=(str(one_ckpt), *steps[STEPS]))
     micro_spec = dict(init=init, steps=steps[:STEPS], config=dict(
         mesh=dict(pp=2), train=dict(pp_microbatches=4)))
-    accum_spec = dict(init=init, steps=steps[:STEPS], config=dict(
+    accum_steps = [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw[:STEPS], accum=2)]
+    accum_spec = dict(init=init, steps=accum_steps, config=dict(
         mesh=dict(pp=2), train=dict(grad_accum=2)))
     dp_spec = dict(init=init, steps=steps[:STEPS], config=dict(mesh=dict(pp=2, dp=2)))
     refs = dict(pp=mc.one_process(tmp, "pp_one", pp_spec))  # writes one_ckpt first
     procs = dict(pp=mc.start(tmp, "pp", 2, pp_spec), micro=mc.start(tmp, "micro", 2, micro_spec),
                  accum=mc.start(tmp, "accum", 2, accum_spec),
                  ppdp=mc.start(tmp, "ppdp", 4, dp_spec))
-    state, jax_metrics = jt.state, []
-    for i, batch in enumerate(raw[:STEPS]):
-        state, metrics = jt._train_step(state, tuple(jnp.asarray(x) for x in batch),
-                                        jax.random.fold_in(jt.rng, i + 1))
-        jax_metrics.append({k: float(v) for k, v in metrics.items()})
-    jax_state = {k: {n: torch.from_numpy(np.array(v)) for n, v in to_port(t).items()}
-                 for k, t in (("params", state.params), ("ema", state.ema_params))}
+    jax_runs = dict(pp=jax_mesh_steps(jt, raw[:STEPS]))
+    for job, spec in (("micro", micro_spec), ("accum", accum_spec)):
+        trainer = jax_mesh_trainer(tmp / f"jax_{job}", dict(pp=2), nnet=scan,
+                                   train=spec["config"]["train"])
+        jax_runs[job] = jax_mesh_steps(trainer, raw[:STEPS])
     refs["accum"] = mc.one_process(tmp, "accum_one", accum_spec)
     got = {job: mc.finish(tmp, job, p) for job, p in procs.items()}
-    return dict(tmp=tmp, got=got, refs=refs, jax=(jax_metrics, jax_state), pp_spec=pp_spec)
+    return dict(tmp=tmp, got=got, refs=refs, jax=jax_runs, pp_spec=pp_spec)
 
 
 def test_pp_over_two_processes_equals_one_process_and_jax(runs):
@@ -78,9 +76,8 @@ def test_pp_over_two_processes_equals_one_process_and_jax(runs):
     for g in got:
         mc.assert_metrics(g["metrics"], ref["metrics"], "pp vs one process")
     mc.assert_state(got[0]["state"], ref["state"], "pp vs one process")
-    jax_metrics, jax_state = runs["jax"]
-    mc.assert_metrics(got[0]["metrics"], jax_metrics, "pp vs JAX pp=2",
-                      tol=dict(rtol=1e-5, atol=1e-6))
+    jax_metrics, jax_state = runs["jax"]["pp"]
+    mc.assert_metrics(got[0]["metrics"], jax_metrics, "pp vs JAX pp=2", tol=JAX_METRIC_TOL)
     mc.assert_state(got[0]["state"], jax_state, "pp vs JAX pp=2")
     names = list(ref["state"]["params"])
     for stage, g in enumerate(got):  # its own blocks and every replicated tensor
@@ -97,6 +94,15 @@ def test_pp_variants_equal_one_process(runs, job):
     for g in got:
         mc.assert_metrics(g["metrics"], ref["metrics"], f"{job} vs one process")
     mc.assert_state(got[0]["state"], ref["state"], f"{job} vs one process")
+
+
+@pytest.mark.parametrize("job", ["micro", "accum"])
+def test_pp_variants_equal_the_jax_trainer(runs, job):
+    jax_metrics, jax_state = runs["jax"][job]
+    what = f"{job} vs JAX pp=2"
+    for g in runs["got"][job]:
+        mc.assert_metrics(g["metrics"], jax_metrics, what, tol=JAX_METRIC_TOL)
+    mc.assert_state(runs["got"][job][0]["state"], jax_state, what)
 
 
 def test_pp_checkpoints_are_one_process_files_both_ways(runs):

@@ -6,11 +6,13 @@ every check, started together; 120 s), each against this one process on
 the global batch of 16, f32, at rtol / atol 1e-5
 (`test_torch_port_fsdp_gloo.py`'s tolerance), three steps:
 
-  * sp = 2 beside dp = 2 over four processes (sp_mode 'process_group'),
-    with `num_clip_token=6`: the image stream's 23 tokens pad to 24, so one
-    rank's mask-stream shard is reordered for the ring; the samples on every
-    rank equal one process's and only rank 0 writes the grid;
-  * sp = 2 'in_process' beside dp = 2 over two processes, and its samples;
+  * sp = 2 beside dp = 2 over four processes (sp_mode 'process_group') and
+    over two ('in_process'), with `num_clip_token=6`: the image stream's 23
+    tokens pad to 24, so one shard of the mask stream is reordered for the
+    ring.  Both start from the JAX trainer's initial parameters and take its
+    draws, and are held to the JAX `Trainer` at mesh.sp = 2, mesh.dp = 2 on
+    the 8-device CPU mesh too; the samples on every rank equal one
+    process's and only rank 0 writes the grid;
   * sp = 2 beside tp = 2 over four processes (the ring on each rank's two
     heads of four), and beside fsdp = 2 (the sp sum on each rank's shards).
 
@@ -18,69 +20,61 @@ In this process: the port's `Trainer` at sp = 2 'in_process' with
 `num_clip_token=6` (23 image tokens, 16 + 23 in the mask stream), from the
 JAX trainer's initial parameters on its draws, against the JAX `Trainer` at
 mesh.sp = 2 with the same streams (GSPMD pads the uneven token sharding;
-JAX's ring masks the pad keys through `nvalid`; its parameter init is
-jitted here, see the fixture): the loss, loss_mask and
-grad_norm of three steps and the parameters and EMA after them, at rtol
-1e-4 / atol 1e-5 (`test_torch_port_train_sp.py`'s tolerance).
+JAX's ring masks the pad keys through `nvalid`).
+
+Against JAX, the loss, loss_mask and grad_norm of three steps and the
+parameters and EMA after them are held at rtol 1e-4 / atol 1e-5
+(`test_torch_port_train_sp.py`'s tolerance).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 import torch_port_mesh_common as mc
 import torch_port_mesh_worker as worker
-from torch_port_train_common import configure, jax_draws, to_port
+from torch_port_train_common import jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer, to_port
 
 torch.set_num_threads(1)
 
 STEPS = 3
 UNEVEN = dict(nnet=dict(num_clip_token=6), dataset=dict(clip_shape=(6, 16)))
+JAX_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _jax(tmp, mesh, seed):
+    """A JAX trainer at `mesh` with 6 context tokens: (its initial
+    parameters, its steps as tensors, the trainer, the numpy batches)."""
+    jt = jax_mesh_trainer(tmp / f"jax_{seed}", mesh, clip_tokens=6)
+    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
+    raw = [tuple(x.numpy() for x in b) for b, _ in mc.tiny_steps(STEPS, seed=seed,
+                                                                 clip_tokens=6)]
+    return init, [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw)], jt, raw
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sp")
+    dp_init, dp_steps, dp_jax, dp_raw = _jax(tmp, dict(sp=2, dp=2), 3)
+    sample = mc.sample_inputs(clip_tokens=6)
     specs = dict(
-        spdp=(4, dict(config=dict(UNEVEN, mesh=dict(sp=2, dp=2)),
-                      steps=mc.tiny_steps(STEPS, clip_tokens=6),
-                      sample=mc.sample_inputs(clip_tokens=6))),
-        spdp_in=(2, dict(config=dict(mesh=dict(sp=2, dp=2, sp_mode="in_process")),
-                         steps=mc.tiny_steps(STEPS, seed=3), sample=mc.sample_inputs())),
+        spdp=(4, dict(config=dict(UNEVEN, mesh=dict(sp=2, dp=2)), init=dp_init,
+                      steps=dp_steps, sample=sample)),
+        spdp_in=(2, dict(config=dict(UNEVEN, mesh=dict(sp=2, dp=2, sp_mode="in_process")),
+                         init=dp_init, steps=dp_steps, sample=sample)),
         sptp=(4, dict(config=dict(mesh=dict(sp=2, tp=2)), steps=mc.tiny_steps(STEPS, seed=4))),
         spfsdp=(4, dict(config=dict(mesh=dict(sp=2, fsdp=2)),
                         steps=mc.tiny_steps(STEPS, seed=6))))
     procs = {job: mc.start(tmp, job, world, spec) for job, (world, spec) in specs.items()}
-
-    jconfig = configure(jax_get_config("synthetic_tiny"), False, "", dict(sp=2),
-                        nnet=dict(num_clip_token=6))
-    jconfig.dataset.clip_shape = (6, 16)
-    # JAX's `_init_params` runs `nnet.init` eagerly, where the uneven token
-    # constraint lands on a pjit output, which JAX refuses; under jit it is
-    # an intermediate that GSPMD pads, as in the jitted train step.
-    init_params = JaxTrainer._init_params
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JaxTrainer, "_init_params", lambda self: jax.jit(
-            lambda: init_params(self))())
-        jt = JaxTrainer(jconfig, str(tmp / "jax"))
-    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
-    raw = [tuple(x.numpy() for x in b) for b, _ in mc.tiny_steps(STEPS, seed=5, clip_tokens=6)]
-    state, jax_metrics, steps = jt.state, [], []
-    for i, batch in enumerate(raw):
-        key = jax.random.fold_in(jt.rng, i + 1)
-        steps.append(mc.as_tensors(batch, jax_draws(key, batch)))
-        state, metrics = jt._train_step(state, tuple(jnp.asarray(x) for x in batch), key)
-        jax_metrics.append({k: float(v) for k, v in metrics.items()})
-    jax_state = {k: {n: torch.from_numpy(np.array(v)) for n, v in to_port(t).items()}
-                 for k, t in (("params", state.params), ("ema", state.ema_params))}
+    jax_runs = dict(spdp=jax_mesh_steps(dp_jax, dp_raw))
+    init, steps, jt, raw = _jax(tmp, dict(sp=2), 5)
+    jax_runs["uneven"] = jax_mesh_steps(jt, raw)
     uneven = worker.run_job(dict(init=init, steps=steps, config=dict(
         UNEVEN, mesh=dict(sp=2, sp_mode="in_process"))), str(tmp), "uneven", 0)
-    refs = {job: mc.one_process(tmp, f"{job}_one", spec) for job, (_, spec) in specs.items()}
+    refs = {job: mc.one_process(tmp, f"{job}_one", spec) for job, (_, spec) in specs.items()
+            if job != "spdp_in"}
+    refs["spdp_in"] = refs["spdp"]  # the same job
     got = {job: mc.finish(tmp, job, p) for job, p in procs.items()}
-    return dict(tmp=tmp, got=got, refs=refs, jax=(jax_metrics, jax_state), uneven=uneven)
+    return dict(tmp=tmp, got=got, refs=refs, jax=jax_runs, uneven=uneven)
 
 
 @pytest.mark.parametrize("job", ["spdp", "spdp_in", "sptp", "spfsdp"])
@@ -108,7 +102,16 @@ def test_samples_under_sp_equal_one_process(runs, job):
 
 
 def test_a_stream_that_does_not_divide_sp_equals_the_jax_trainer(runs):
-    jax_metrics, jax_state = runs["jax"]
-    tol = dict(rtol=1e-4, atol=1e-5)
-    mc.assert_metrics(runs["uneven"]["metrics"], jax_metrics, "uneven sp vs JAX sp=2", tol=tol)
-    mc.assert_state(runs["uneven"]["state"], jax_state, "uneven sp vs JAX sp=2", tol=tol)
+    jax_metrics, jax_state = runs["jax"]["uneven"]
+    mc.assert_metrics(runs["uneven"]["metrics"], jax_metrics, "uneven sp vs JAX sp=2",
+                      tol=JAX_TOL)
+    mc.assert_state(runs["uneven"]["state"], jax_state, "uneven sp vs JAX sp=2", tol=JAX_TOL)
+
+
+@pytest.mark.parametrize("job", ["spdp", "spdp_in"])
+def test_sp_beside_dp_equals_the_jax_trainer(runs, job):
+    jax_metrics, jax_state = runs["jax"]["spdp"]
+    got = runs["got"][job]
+    for g in got:
+        mc.assert_metrics(g["metrics"], jax_metrics, f"{job} vs JAX sp=2 x dp=2", tol=JAX_TOL)
+    mc.assert_state(got[0]["state"], jax_state, f"{job} vs JAX sp=2 x dp=2", tol=JAX_TOL)

@@ -19,56 +19,43 @@ running the same job on the global batch of 16, f32, at rtol / atol 1e-5
     tp ranks from one process's checkpoint, equal one process's fourth;
     the sampler's images and mask, on every rank, equal one process's,
     and only rank 0 writes the grid;
-  * tp = 2 beside fsdp = 2: the same three steps, and the samples (the
-    EMA gathered whole over fsdp);
+  * tp = 2 beside fsdp = 2 on the same inputs: the same three steps, also
+    equal to the JAX `Trainer`'s at mesh.tp = 2, mesh.fsdp = 2, and the
+    samples (the EMA gathered whole over fsdp);
   * the UNet at tp = 2 (its GEGLU split per value / gate pair): three steps.
 """
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.parallel import tensor as tp_lib
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 import torch_port_mesh_common as mc
 import torch_port_mesh_worker as worker
-from torch_port_train_common import batches, configure, jax_draws, to_port
+from torch_port_train_common import (batches, jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer,
+                                     to_port)
 from torch_port_unet_common import unet_fields
 
 torch.set_num_threads(1)
 
 STEPS = 3
-
-
-def _jax_steps(trainer, steps):
-    state, out = trainer.state, []
-    for i, batch in enumerate(steps):
-        key = jax.random.fold_in(trainer.rng, i + 1)
-        state, metrics = trainer._train_step(state, tuple(jnp.asarray(x) for x in batch), key)
-        out.append({k: float(v) for k, v in metrics.items()})
-    return out, dict(params=to_port(state.params), ema=to_port(state.ema_params))
+JAX_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
-    jt = JaxTrainer(configure(jax_get_config("synthetic_tiny"), False, "", dict(tp=2)),
-                    str(tmp / "jax"))
+    jt = jax_mesh_trainer(tmp / "jax", dict(tp=2))
     init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
     raw = batches(STEPS + 1)
-    steps = [mc.as_tensors(b, jax_draws(jax.random.fold_in(jt.rng, i + 1), b))
-             for i, b in enumerate(raw)]
+    steps = [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw)]
     one_ckpt = tmp / "tp_one_ckpts" / f"{STEPS}.ckpt"
     base = dict(init=init, steps=steps[:STEPS], sample=mc.sample_inputs())
     tp_spec = dict(base, config=dict(mesh=dict(tp=2)), resume=(str(one_ckpt), *steps[STEPS]))
-    fsdp_spec = dict(config=dict(mesh=dict(tp=2, fsdp=2)), steps=mc.tiny_steps(STEPS),
-                     sample=mc.sample_inputs())
+    fsdp_spec = dict(base, config=dict(mesh=dict(tp=2, fsdp=2)))
     unet_spec = dict(config=dict(nnet=unet_fields(channel_mult=[2, 2]), mesh=dict(tp=2),
                                  sample=dict(algorithm="pndm")),
                      steps=mc.tiny_steps(STEPS, seed=2))
@@ -76,11 +63,12 @@ def runs(tmp_path_factory):
     procs = dict(tp=mc.start(tmp, "tp", 2, tp_spec),
                  tpfsdp=mc.start(tmp, "tpfsdp", 4, fsdp_spec),
                  unet=mc.start(tmp, "unet", 2, unet_spec))
-    jax_metrics, jax_state = _jax_steps(jt, [b for b in raw[:STEPS]])
-    refs["tpfsdp"] = mc.one_process(tmp, "tpfsdp_one", fsdp_spec)
+    jax_runs = dict(tp=jax_mesh_steps(jt, raw[:STEPS]), tpfsdp=jax_mesh_steps(
+        jax_mesh_trainer(tmp / "jax_fsdp", dict(tp=2, fsdp=2)), raw[:STEPS]))
+    refs["tpfsdp"] = refs["tp"]  # the same job
     refs["unet"] = mc.one_process(tmp, "unet_one", unet_spec)
     got = {job: mc.finish(tmp, job, p) for job, p in procs.items()}
-    return dict(tmp=tmp, got=got, refs=refs, jax=(jax_metrics, jax_state), tp_spec=tp_spec)
+    return dict(tmp=tmp, got=got, refs=refs, jax=jax_runs, tp_spec=tp_spec)
 
 
 def test_per_head_and_geglu_splits_round_trip():
@@ -116,11 +104,9 @@ def test_tp_over_two_processes_equals_one_process_and_jax(runs):
     for g in got:
         mc.assert_metrics(g["metrics"], ref["metrics"], "tp vs one process")
     mc.assert_state(got[0]["state"], ref["state"], "tp vs one process")
-    jax_metrics, jax_state = runs["jax"]
-    mc.assert_metrics(got[0]["metrics"], jax_metrics, "tp vs JAX tp=2",
-                      tol=dict(rtol=1e-5, atol=1e-6))
-    mc.assert_state(got[0]["state"], {k: {n: torch.from_numpy(np.array(v)) for n, v in d.items()}
-                                      for k, d in jax_state.items()}, "tp vs JAX tp=2")
+    jax_metrics, jax_state = runs["jax"]["tp"]
+    mc.assert_metrics(got[0]["metrics"], jax_metrics, "tp vs JAX tp=2", tol=JAX_METRIC_TOL)
+    mc.assert_state(got[0]["state"], jax_state, "tp vs JAX tp=2")
     held, numel = got[1]["held"], {n: v.numel() for n, v in ref["state"]["params"].items()}
     split = [n for n in numel if "block" in n and n.endswith(
         (".qkv.weight", ".proj.weight", ".fc1.weight", ".fc2.weight", ".fc1.bias"))]
@@ -173,6 +159,15 @@ def test_tp_beside_fsdp_over_four_processes_equals_one_process(runs):
     mc.assert_state(got[0]["state"], ref["state"], "tp x fsdp vs one process")
     w = "in_blocks.0.attn.qkv.weight"
     assert got[3]["held"][w] * 4 == ref["state"]["params"][w].numel()
+
+
+def test_tp_beside_fsdp_equals_the_jax_trainer(runs):
+    jax_metrics, jax_state = runs["jax"]["tpfsdp"]
+    got = runs["got"]["tpfsdp"]
+    for g in got:
+        mc.assert_metrics(g["metrics"], jax_metrics, "tp x fsdp vs JAX tp=2 x fsdp=2",
+                          tol=JAX_METRIC_TOL)
+    mc.assert_state(got[0]["state"], jax_state, "tp x fsdp vs JAX tp=2 x fsdp=2")
 
 
 def test_unet_at_tp_2_equals_one_process(runs):

@@ -12,17 +12,23 @@ drives JAX's:
     for batch, bit for bit, at start steps 0 and 5: the loader's seed
     (seed + rank + 1_000_003 * step) and the p_uncond drop to the empty
     context, drawn from `np.random.default_rng(seed + rank + step)`;
-  * under `ProcessGroupSP` the native path is not taken."""
+  * where several processes load one batch shard (they differ in pp, sp
+    or tp alone) the first of them reads it, on the native path, and the
+    others read nothing; over four gloo processes at dp = 2 x tp = 2 with
+    two loader threads, the tp peers' first three batches are equal, both
+    shards' differ, and every rank reports the native pipeline."""
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
 from panopticdiffusionmodels_tpu.data.datasets import MSCOCO256Features as JaxFeatures
 from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
-from panopticdiffusionmodels_torch.parallel.mesh import ProcessGroupSP
+from panopticdiffusionmodels_torch.parallel.mesh import DataParallel
 from panopticdiffusionmodels_torch.train.trainer import Trainer
+import torch_port_mesh_common as mc
 from torch_port_coco_common import write_feature_dir
 
 torch.set_num_threads(1)
@@ -94,9 +100,42 @@ def test_stream_equals_jax_native_stream(coco_features, tmp_path, start_step):
     assert 0 < dropped < 40  # p_uncond 0.5 of 40 rows
 
 
-def test_sequence_parallel_process_group_takes_the_python_loader(coco_features, tmp_path):
+def test_sequence_parallel_process_group_takes_the_python_loader(coco_features, tmp_path,
+                                                                 monkeypatch):
+    """Under 'process_group' sp the peers of a batch shard take what the
+    first of them reads: rank 3 of dp = 2 x sp = 2 opens no loader and
+    takes rank 2's batch, and the pipeline it came from, over the data
+    peers' group."""
     trainer = Trainer(configure(get_config("synthetic_tiny"), coco_features), str(tmp_path),
                       device="cpu")
-    assert trainer._native_stream() is not None
-    trainer.sp = ProcessGroupSP.__new__(ProcessGroupSP)  # every rank must read the same rows
-    assert trainer._native_stream() is None
+    trainer.dp = DataParallel(4, 3, dict(dp=2, sp=2))
+    assert trainer.dp.data_peers() == [2, 3]
+    monkeypatch.setattr(trainer.dp, "group", lambda axis: f"group {axis}")
+    monkeypatch.setattr(trainer, "_read_stream", lambda start: pytest.fail("read"))
+    sent = ("native", True, [((4, 8, 8, 8), torch.float32), ((4, 16, 16, 1), torch.uint8)])
+    calls = []
+
+    def broadcast_object_list(box, src, group):
+        calls.append((src, group))
+        box[0] = sent
+
+    monkeypatch.setattr(dist, "broadcast_object_list", broadcast_object_list)
+    monkeypatch.setattr(dist, "broadcast", lambda t, src, group: calls.append((src, group)))
+    batch = next(trainer.data_stream())
+    assert [(tuple(t.shape), t.dtype) for t in batch] == [(tuple(s), d) for s, d in sent[2]]
+    assert trainer.input_pipeline == "native"
+    assert calls == [(2, "group data")] * 3
+
+
+def test_peers_of_a_batch_shard_train_on_the_same_rows(coco_features, tmp_path):
+    spec = dict(config=dict(
+        dataset=dict(name="mscoco256_features", path=coco_features, cfg=True, p_uncond=0.5,
+                     mask_size=16),
+        nnet=dict(mask_size=16), train=dict(batch_size=8), num_workers=2,
+        mesh=dict(dp=2, tp=2)), steps=[], stream=3)
+    got = mc.finish(tmp_path, "peers", mc.start(tmp_path, "peers", 4, spec))
+    assert [g["input_pipeline"] for g in got] == ["native"] * 4
+    for a, b in ((0, 1), (2, 3)):  # tp peers: the same rows
+        for x, y in zip(got[a]["stream"], got[b]["stream"]):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+    assert not torch.equal(got[0]["stream"][0][0], got[2]["stream"][0][0])

@@ -17,14 +17,17 @@ OUT_DIR/JOB.pt describes (`job_spec` builds it):
   * `sample`: (cond, z, m0, steps) to sample with `build_sample_fn` after
     the steps, then the vis callback (rank 0 writes its grid), or None;
   * `resume`: (a checkpoint file, a batch, draws): after the steps, every
-    rank loads that file and takes one more step, or None.
+    rank loads that file and takes one more step, or None;
+  * `stream`: a number of batches to take from `Trainer.data_stream`
+    after the steps, or None.
 
 After the steps every rank enters the train state's gathers and rank 0
 writes its checkpoint under OUT_DIR/JOB_ckpts.  Each rank writes
 OUT_DIR/JOB_rank{RANK}.pt: its layout's coordinates, the metrics of each
 step, the whole state after the steps (`TrainState.state_dict()`, one
 process's), the elements it holds of each parameter, the samples, and the
-whole state after the resumed step.
+whole state after the resumed step, the streamed batches and the input
+pipeline that read them.
 """
 import os
 import sys
@@ -55,7 +58,7 @@ def merge(config, overrides: dict):
 
 def make_config(overrides: dict):
     config = merge(get_config("synthetic_tiny"), overrides)
-    config.num_workers = 0
+    config.num_workers = overrides.get("num_workers", 0)
     return config
 
 
@@ -108,6 +111,10 @@ def run_job(spec: dict, out_dir: str, job: str, rank: int) -> dict:
     ckpt_lib.wait_for_saves()
     if spec.get("sample") is not None:
         out["samples"] = sample(trainer, spec["sample"])
+    if spec.get("stream"):
+        stream = trainer.data_stream()
+        out["stream"] = [tuple(t.cpu() for t in next(stream)) for _ in range(spec["stream"])]
+        out["input_pipeline"] = trainer.input_pipeline
     if spec.get("resume") is not None:
         path, batch, draws = spec["resume"]
         trainer.state.load_state_dict(ckpt_lib.load_checkpoint(path))

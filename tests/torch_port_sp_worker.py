@@ -4,11 +4,11 @@
     python tests/torch_port_sp_worker.py RANK PORT OUT_DIR
 
 Joins a 2-process gloo group on tcp://localhost:PORT, then runs (a) ring
-attention over `ProcessGroupSP` on all tokens of a seeded (B, L, 3C) qkv,
-forward and gradient (the loss scaled by 1/sp and the gradients summed over
-the ranks, as the trainer does), and (b) one train step of the port's
-`Trainer` (synthetic_tiny, mesh.sp = 2, sp_mode 'process_group') on a seeded
-batch with seeded draws.  Writes OUT_DIR/rank{RANK}.pt.
+attention over the `ProcessGroupSP` of `from_mesh(dict(sp=2))` on all
+tokens of a seeded (B, L, 3C) qkv, forward and gradient (the loss scaled by
+1/sp and the gradients summed over the ranks, as the trainer does), and (b)
+one train step of the port's `Trainer` (synthetic_tiny, mesh.sp = 2,
+sp_mode 'process_group') on a seeded batch with seeded draws.  Writes OUT_DIR/rank{RANK}.pt.
 """
 import os
 import sys
@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from panopticdiffusionmodels_torch.configs import get_config  # noqa: E402
 from panopticdiffusionmodels_torch.ops.ring_attention import ring_attention_qkv  # noqa: E402
-from panopticdiffusionmodels_torch.parallel.mesh import ProcessGroupSP  # noqa: E402
+from panopticdiffusionmodels_torch.parallel.mesh import from_mesh  # noqa: E402
 from panopticdiffusionmodels_torch.train.trainer import Trainer  # noqa: E402
 
 SP, HEADS, C, L = 2, 4, 32, 17  # L = 17 pads to 18: the second shard holds one padding row
@@ -66,7 +66,9 @@ def main(rank: int, port: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=SP,
                             rank=rank)
     try:
-        sp = ProcessGroupSP(SP)
+        layout = from_mesh(dict(sp=SP))
+        layout.init_groups("cpu")
+        sp = layout.seq
         qkv = ring_inputs().requires_grad_()
         out = ring_attention_qkv(qkv, HEADS, (C // HEADS) ** -0.5, sp)
         ((out ** 2).sum() / sp.world_size).backward()

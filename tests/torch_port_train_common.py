@@ -87,6 +87,54 @@ def jax_reference(workdir, steps, use_checkpoint=False, pretrained="", mesh=None
     return init, out
 
 
+def jax_mesh_trainer(workdir, mesh, nnet=None, train=None, clip_tokens: int = 7):
+    """The JAX `Trainer` of synthetic_tiny (f32) at `mesh`, `nnet` / `train`
+    fields overridden and `clip_tokens` context tokens.  Its parameter init
+    runs under jit: eagerly, the token sharding of a stream that does not
+    divide sp lands on a pjit output, which JAX refuses; under jit it is an
+    intermediate that GSPMD pads, as in the jitted train step."""
+    config = configure(jax_get_config("synthetic_tiny"), False, "", mesh,
+                       dict(nnet or {}, num_clip_token=clip_tokens))
+    config.dataset.clip_shape = (clip_tokens, 16)
+    config.train.update(train or {})
+    init_params = JaxTrainer._init_params
+    try:
+        JaxTrainer._init_params = lambda self: jax.jit(lambda: init_params(self))()
+        return JaxTrainer(config, str(workdir))
+    finally:
+        JaxTrainer._init_params = init_params
+
+
+def jax_mesh_draws(trainer, raw, accum: int = 1) -> list:
+    """[(batch, draws)]: the numpy batches `raw` with the draws the JAX
+    trainer's step i + 1 makes on each.  Under `train.grad_accum=accum` the
+    JAX step splits its key over the micro-batches (contiguous rows): the
+    draws of each, concatenated."""
+    out = []
+    for i, batch in enumerate(raw):
+        key = jax.random.fold_in(trainer.rng, i + 1)
+        if accum == 1:
+            out.append((batch, jax_draws(key, batch)))
+            continue
+        micro = [tuple(x.reshape(accum, -1, *x.shape[1:])[j] for x in batch)
+                 for j in range(accum)]
+        parts = [jax_draws(k, b) for k, b in zip(jax.random.split(key, accum), micro)]
+        out.append((batch, {n: np.concatenate([p[n] for p in parts]) for n in parts[0]}))
+    return out
+
+
+def jax_mesh_steps(trainer, raw) -> tuple:
+    """The JAX trainer's steps on the numpy batches `raw`: ([metrics],
+    dict(params, ema) after them by the port's names, as tensors)."""
+    state, metrics = trainer.state, []
+    for i, batch in enumerate(raw):
+        state, m = trainer._train_step(state, tuple(jnp.asarray(x) for x in batch),
+                                       jax.random.fold_in(trainer.rng, i + 1))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {k: {n: torch.from_numpy(np.array(v)) for n, v in to_port(t).items()}
+                     for k, t in (("params", state.params), ("ema", state.ema_params))}
+
+
 def port_trainer(workdir, use_checkpoint=False, pretrained="", init=None, mesh=None) -> Trainer:
     trainer = Trainer(configure(get_config("synthetic_tiny"), use_checkpoint, pretrained, mesh),
                       str(workdir), device="cpu")
