@@ -297,7 +297,27 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      that every rank of phases 37-39 drew from its trainer's EMA (rank 0's)
      against one process sampling from the same EMA (images < 2e-2, masks
      < 5e-2);
- 42. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 42. the quality gate on the port (`scripts/quality_gate.py`), the
+     trained_panoptic geometry cut from its defaults: the dual-stream S/2
+     trained for GATE_TRAIN_S seconds at batch 32 (kernel 1 with lse and
+     kernel 2, exactly 26 + 26 calls a step), then GATE_N samples each of
+     exactA, exactB, steps=25, steps=3 and gelu_accel=0.2 (exactly 26 kernel-1
+     launches a real eval a batch) through the random-weight Inception, then
+     `report` through the script's command line in a process of its own,
+     beside 43 and 44 (its `sqrtm`s run on the host): steps/s, samples/s,
+     peak memory and the verdict table; the report well formed with finite
+     floors (no verdict asserted after so short a training);
+ 43. the evaluation rehearsal (`scripts/eval_rehearsal.py`) at N = 64 on the
+     port bench's U-ViT-L/2: its JSON line with each phase's seconds, 21 x 50
+     kernel-1 launches a request, the self-FD about 0;
+ 44. pp = 2 beside fsdp = 2: four processes on the one card over gloo,
+     mscoco_uvit_small at batch 8 (fine-tune mode, remat): one step's loss
+     on the global batch against one process (< 5e-3), 2 + 5 steps through
+     `fit` with exactly 12 x 2 (stage 0) and 14 x 2 (stage 1) kernel calls a
+     step, the share of the block parameters a rank holds (about 0.25), the
+     step time (gloo; not judged); the children run beside 42's sampling and
+     43, so both share the host and the card with them;
+ 45. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
@@ -341,10 +361,12 @@ from panopticdiffusionmodels_torch.scripts import (
     bench,
     bench_fused_ln,
     convert_checkpoint,
+    eval_rehearsal,
     extract_empty_feature,
     extract_mscoco_feature,
     extract_test_prompt_feature,
 )
+from panopticdiffusionmodels_torch.scripts import quality_gate as qg
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 from panopticdiffusionmodels_torch.train.state import TrainState, make_lr_schedule
@@ -367,10 +389,14 @@ PEAK_BYTES = 3.35e12
 # heads of 72) on the mma.sync loop.
 # The rest of distributed: the panoptic training shapes at tp = 2, H/2 = 4
 # heads on each rank.
+# The quality gate's 512-res geometry (trained_panoptic_512, the
+# mscoco_uvit_small_512 streams of L = 1102 / 2126): sampling at batch 32 (CFG
+# 2 x 32 rows) and, with lse, its training at batch 32.
 KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
                  (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
                  (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72),
-                 (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64)]
+                 (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64),
+                 (64, 1102, 8, 64), (64, 2126, 8, 64), (32, 1102, 8, 64), (32, 2126, 8, 64)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
@@ -378,11 +404,13 @@ PIXEL_SHAPES = KERNEL_SHAPES[7:10]
 HUGE_SHAPE = KERNEL_SHAPES[10]
 MID_TRAIN_SHAPE = KERNEL_SHAPES[11]  # mscoco_uvit_mid training at batch 32, with lse
 TP_SHAPES = KERNEL_SHAPES[12:14]
+GATE_512_SHAPES = KERNEL_SHAPES[14:18]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
 # L (one partial tile; one row past a tile).
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
               (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64),
-              (32, 258, 16, 72), (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64)]
+              (32, 258, 16, 72), (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64),
+              (32, 1102, 8, 64), (32, 2126, 8, 64)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
 # row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
 # training at batch 128 (phase 3's last row with lse, and the backward).
@@ -391,6 +419,7 @@ CIFAR_TRAIN_SHAPE = BWD_SHAPES[7]
 HUGE_TRAIN_SHAPE = BWD_SHAPES[8]  # U-ViT-H/2's latent_discrete step at batch 32
 MID_BWD_SHAPE = BWD_SHAPES[9]  # mscoco_uvit_mid's image-only step at batch 32
 TP_BWD_SHAPES = BWD_SHAPES[10:12]  # the panoptic step at tp = 2
+GATE_512_BWD_SHAPES = BWD_SHAPES[12:14]  # the 512-res gate model's training step
 TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
@@ -425,8 +454,12 @@ HOP_LAUNCHES_PER_STEP = 52
 # dim, the UNet head dim and one L past the JAX function's MAX_FULL_SEQ.
 MHA_SHAPES = [(32, 16, 258, 64), (8, 16, 258, 72), (8, 8, 256, 40), (2, 8, 1100, 64)]
 # (B, L, C, heads) of LayerNorm + qkv + attention: the A/B chain's two
-# batches, the longest L of the whole-sequence path, and a ragged small L.
-LN_SHAPES = [(32, 258, 1024, 16), (64, 258, 1024, 16), (4, 1024, 1024, 16), (2, 37, 256, 4)]
+# batches, the longest L of the whole-sequence path, a ragged small L, and
+# U-ViT-H/2's width (C = 1152, 16 heads of 72), whose 3C = 3456 columns end
+# in a masked half GEMM tile (LN_COL_TILE), checked on its own.
+LN_SHAPES = [(32, 258, 1024, 16), (64, 258, 1024, 16), (4, 1024, 1024, 16), (2, 37, 256, 4),
+             (32, 258, 1152, 16)]
+LN_COL_TILE = 256
 CHAIN_BATCHES = (32, 64)
 # ImageNet-256 class-conditional serving (imagenet256_uvit_large): requests of
 # 32 labels, 21 blocks x 50 NFE kernel-1 launches a request (CFG as one 2x
@@ -567,6 +600,23 @@ TINY_SP_HOPS = 20
 SP4_LOSS_BAR = 1e-5
 SP4, SP4_HOPS = 4, 26 * 4
 MESH_SAMPLES, MESH_SAMPLE_STEPS = 4, 6
+# The quality gate on the port (phase 42): trained_panoptic trained for
+# GATE_TRAIN_S seconds at batch 32, then GATE_N samples a spec in batches of
+# 32; a spec's real evals a batch (accel 0.2 forecasts 30 of 50), 26 kernel-1
+# launches each.  The rehearsal (43): REHEARSAL_N samples in batches of 32,
+# one warm-up request before, 21 x 50 launches a request.  pp x fsdp (44):
+# four gloo processes.
+GATE_TRAIN_S, GATE_BATCH, GATE_N = 90.0, 32, 128
+GATE_EVALS = {"exactA": STEPS, "exactB": STEPS, "steps=25": 25, "steps=3": 3,
+              "gelu_accel=0.2": RECOMMENDED_EVALS}
+REHEARSAL_N, REHEARSAL_BATCH = 64, 32
+PPFSDP_WORLD = 4
+# The pipeline's parity step (39, 44) against one process, bf16: between
+# the repaired exchange's deviations (loss 0 / 1.1e-7, grad_norm 1.1e-6 /
+# 3.3e-6 at 39 / 44) and those of carries received in the wrong dtype (44:
+# loss 2.9e-4-4.3e-4, grad_norm 2.2e-2), which the step bars (5e-3, 2e-2)
+# let through (H100 80GB HBM3 at 700 W; PERF.md).
+PP_LOSS_BAR, PP_NORM_BAR = 1e-5, 1e-3
 
 
 def zero_counts() -> None:
@@ -1022,6 +1072,11 @@ def phase_ln_qkv(gen):
         rel = rel_dev(out, ref)
         max_abs = float((out.float() - ref.float()).abs().max())
         gemm_rel = rel_dev(qkv, qkv_ref)
+        # a masked last column tile: qkv's columns in it (v's last ones) and
+        # the attention output's columns they feed, on their own
+        col_tail = (3 * c) % LN_COL_TILE
+        gemm_tail = rel_dev(qkv[:, -col_tail:], qkv_ref[:, -col_tail:]) if col_tail else None
+        out_tail = rel_dev(out[..., -col_tail:], ref[..., -col_tail:]) if col_tail else None
 
         def ln_matmul():
             return torch.matmul(F.layer_norm(x.float(), (c,), gamma, beta, 1e-5).to(
@@ -1032,6 +1087,7 @@ def phase_ln_qkv(gen):
             return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
         row = dict(shape=[b, l, c, h], max_rel_dev=rel, max_abs_err=max_abs,
+                   gemm_tail_rel_dev=gemm_tail, out_tail_rel_dev=out_tail,
                    **alternate(lambda: fl.fused_ln_qkv_attention(x, gamma, beta, w, h, scale),
                                library),
                    plain_ms=cuda_ms(lambda: fl.fused_ln_qkv_attention_plain(
@@ -1047,7 +1103,9 @@ def phase_ln_qkv(gen):
         gemm["tflops"] = 2 * b * l * c * 3 * c / gemm["gemm"] / 1e9
         gemm["stats_share"] = gemm["stats"] / (gemm["stats"] + gemm["gemm"])
         row["gemm_half"] = gemm
-        print(f"[3e] B{b} L{l} C{c} H{h}: rel {rel:.2e} max|err| {max_abs:.2e} | kernels "
+        tail = ("" if not col_tail else f" masked last column tile ({col_tail} of "
+                f"{LN_COL_TILE} columns): qkv rel {gemm_tail:.2e}, output rel {out_tail:.2e};")
+        print(f"[3e] B{b} L{l} C{c} H{h}: rel {rel:.2e} max|err| {max_abs:.2e}{tail} | kernels "
               f"{row['ms']:.4f} ms {fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} "
               f"ms, layer_norm+matmul+sdpa {row['library_ms']:.4f} ms "
               f"{fmt_spread(row['library_ms_spread'])} (kernels/library "
@@ -1062,6 +1120,8 @@ def phase_ln_qkv(gen):
               f"{gemm['stats_share']:.1%} of the two")
         assert torch.isfinite(out.float()).all() and rel < 5e-3, (b, l, c, h, rel)
         assert torch.isfinite(qkv.float()).all() and gemm_rel < 5e-3, (b, l, c, h, gemm_rel)
+        assert not col_tail or (gemm_tail < 5e-3 and out_tail < 5e-3), (b, l, c, h, gemm_tail,
+                                                                        out_tail)
         rows.append(row)
     return rows
 
@@ -2331,16 +2391,20 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_children(calls, timeout: int = 300) -> list:
-    """Run each `chip_smoke.<call>` in a child process of its own, all at
-    once, from this file's directory; returns their stdouts, raising with
-    every log if one failed."""
+def start_children(calls, extra_env=None) -> list:
+    """Start each `chip_smoke.<call>` in a child process of its own, all at
+    once, from this file's directory (not waited for)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        filter(None, [here, os.environ.get("PYTHONPATH", "")])))
-    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as c; c.{call}"],
-                              cwd=here, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for call in calls]
+        filter(None, [here, os.environ.get("PYTHONPATH", "")])), **(extra_env or {}))
+    return [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as c; c.{call}"],
+                             cwd=here, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for call in calls]
+
+
+def wait_children(procs, timeout: int = 300) -> list:
+    """Wait for started children; returns their stdouts, raising with every
+    log if one failed; none outlives the call."""
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -2348,6 +2412,12 @@ def run_children(calls, timeout: int = 300) -> list:
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     return logs
+
+
+def run_children(calls, timeout: int = 300) -> list:
+    """Run each `chip_smoke.<call>` in a child process of its own, all at
+    once; returns their stdouts, raising with every log if one failed."""
+    return wait_children(start_children(calls), timeout)
 
 
 @contextlib.contextmanager
@@ -3049,6 +3119,33 @@ def block_share(trainer, name: str) -> float:
     return held / sum(p.numel() for n, p in whole.named_parameters() if blocks(n))
 
 
+def rank_parity(trainer) -> dict:
+    """One step's loss and grad_norm on phase 7's parity batch at
+    MESH_BATCH (this rank's rows), its gradients dropped after."""
+    batch, noise = parity_batch(trainer, MESH_BATCH)
+    rows = trainer.dp.process_batch_slice(MESH_BATCH)
+    metrics = trainer.loss_and_grads(tuple(x[rows] for x in batch),
+                                     {k: v[rows] for k, v in noise.items()})
+    for p in trainer.state.params.values():
+        p.grad = None
+    return dict(loss=train_loss(metrics), grad_norm=float(metrics["grad_norm"]))
+
+
+def one_process_parity(tmp: str) -> dict:
+    """`rank_parity`'s step in one process on the whole batch."""
+    one = make_trainer("mscoco_uvit_small", os.path.join(tmp, "parity_one"), batch=MESH_BATCH)
+    batch, noise = parity_batch(one, MESH_BATCH)
+    metrics = one.loss_and_grads(batch, noise)
+    return dict(loss=train_loss(metrics), grad_norm=float(metrics["grad_norm"]))
+
+
+def parity_rels(ranks, one: dict) -> tuple:
+    """(worst loss, worst grad_norm) relative deviation of the ranks'
+    `rank_parity` from one process's."""
+    return tuple(max(abs(r["parity"][k] - one[k]) / abs(one[k]) for r in ranks)
+                 for k in ("loss", "grad_norm"))
+
+
 def mesh_tiny_config(mode: str):
     """synthetic_tiny in f32 under a layout: two heads under tp (its split
     keeps whole heads), the plain ring under sp."""
@@ -3059,7 +3156,7 @@ def mesh_tiny_config(mode: str):
         config.nnet.attn_impl = "ring_plain"
     config.mesh.update(dict(tp=dict(tp=MESH_WORLD), pp=dict(pp=MESH_WORLD),
                             spdp=dict(sp=2, sp_mode="in_process", dp=MESH_WORLD),
-                            one=dict(), one_tp=dict())[mode])
+                            ppfsdp=dict(pp=2, fsdp=2), one=dict(), one_tp=dict())[mode])
     return config
 
 
@@ -3068,9 +3165,9 @@ def mesh_child(rank: int, port: int, tmp: str, mode: str) -> None:
     the one card over gloo: (a) synthetic_tiny in f32 under the layout, 3
     steps through `fit`, the whole parameters and EMA to
     `tmp/{mode}_tiny{rank}.pt`; (b) 'tp' / 'pp': mscoco_uvit_small at batch
-    8, fine-tune mode, 2 + MESH_TIMED steps through `fit` with the launches
-    counted, the share of the block parameters held, then phase 41's
-    samples; 'spdp': synthetic_tiny in bf16 (one head of 64) through the
+    8, fine-tune mode, one step on phase 7's parity batch (`rank_parity`),
+    2 + MESH_TIMED steps through `fit` with the launches counted, the share
+    of the block parameters held, then phase 41's samples; 'spdp': synthetic_tiny in bf16 (one head of 64) through the
     hop kernel, 1 + 3 steps with the hops counted; to
     `tmp/{mode}_small{rank}.json`."""
     import torch.distributed as dist
@@ -3099,8 +3196,10 @@ def mesh_child(rank: int, port: int, tmp: str, mode: str) -> None:
         else:
             small = make_trainer("mscoco_uvit_small", os.path.join(tmp, f"{mode}_small{rank}"),
                                  mesh={mode: MESH_WORLD}, batch=MESH_BATCH)
+            parity = rank_parity(small)
             small.fit(max_steps=2)
-            timed, extra = MESH_TIMED, dict(block_share=block_share(small, "mscoco_uvit_small"))
+            timed, extra = MESH_TIMED, dict(block_share=block_share(small, "mscoco_uvit_small"),
+                                            parity=parity)
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
@@ -3125,12 +3224,14 @@ def phase_mesh(tmp: str) -> dict:
     layout's synthetic_tiny against one process (f32, TF32 off, max absolute
     difference < 1e-5), the launches a step in each rank, the block share a
     rank holds and the step time (gloo through the host: recorded, not
-    judged)."""
+    judged); tp's and pp's parity step against one process's (pp at
+    PP_LOSS_BAR / PP_NORM_BAR, tp at the step bars)."""
     calls = []
     for mode in ("tp", "pp", "spdp"):
         port = free_port()
         calls += [f"mesh_child({r}, {port}, {tmp!r}, {mode!r})" for r in range(MESH_WORLD)]
     run_children(calls, timeout=900)
+    one = one_process_parity(tmp)
     out = {}
     for mode, tag in (("tp", "38"), ("pp", "39"), ("spdp", "40a")):
         with no_tf32():
@@ -3165,17 +3266,26 @@ def phase_mesh(tmp: str) -> dict:
             assert np.isfinite(res["losses"]).all(), res["losses"]
         if mode == "spdp":
             bf16 = spdp_bf16_parity(tmp, ranks)
+            parity = ""
+        else:
+            loss_rel, norm_rel = parity_rels(ranks, one)
+            bars = (PP_LOSS_BAR, PP_NORM_BAR) if mode == "pp" else (5e-3, 2e-2)
+            parity = (f"parity step vs one process: loss rel {loss_rel:.2e} (bar {bars[0]:.0e}), "
+                      f"grad_norm rel {norm_rel:.2e} (bar {bars[1]:.0e}); ")
         shares = [r.get("block_share") for r in ranks]
         print(f"[{tag}] {mode} over two gloo processes on one card: synthetic_tiny (f32) "
               f"parameters and EMA after {TINY_STEPS} steps vs one process: max abs diff "
               f"{worst:.2e} (bar 1e-5); "
               + ("synthetic_tiny bf16 sp=2 in process x dp=2" if mode == "spdp" else
                  f"mscoco_uvit_small B={MESH_BATCH}")
-              + f": launches {[r['launches'] for r in ranks]} over {ranks[0]['steps']} steps, "
+              + f": {parity}launches {[r['launches'] for r in ranks]} over {ranks[0]['steps']} "
+              f"steps, "
               f"step {[round(r['step_ms'], 1) for r in ranks]} ms (gloo through the host, not "
               f"judged), block parameters held {shares}, peak allocated "
               f"{[round(r['max_memory_allocated_gb'], 3) for r in ranks]} GB ({card_line()})")
         assert worst < 1e-5, (mode, worst)
+        if mode != "spdp":
+            assert loss_rel < bars[0] and norm_rel < bars[1], (mode, loss_rel, norm_rel)
         if mode == "tp":
             assert all(0.45 < x < 0.6 for x in shares), shares
         if mode == "pp":
@@ -3295,11 +3405,240 @@ def phase_mesh_sampling(tmp: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """`os.environ` with `values` set inside the block, put back after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+GATE_GEO = "trained_panoptic"
+
+
+def phase_gate_train(tmp: str) -> dict:
+    """42a: the quality gate's trained_panoptic model trained for
+    GATE_TRAIN_S seconds into a gate directory under `tmp`, kernels 1
+    (with lse) and 2 counted: exactly 26 + 26 calls a step."""
+    with environ(QG_DIR=os.path.join(tmp, "quality_gate")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = qg.train_gate_panoptic(GATE_TRAIN_S, GATE_BATCH, GATE_GEO, "cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    counts, steps = read_counts(), trainer.steps
+    calls = UVIT_T2I_BLOCKS * steps
+    assert counts == {k: calls if k.startswith("fused_attention_qkv") else 0
+                      for k in counts}, (counts, steps)
+    train = dict(steps=steps, train_s=train_s, steps_per_s=steps / train_s,
+                 images_per_s=steps * GATE_BATCH / train_s, launches=counts,
+                 max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[42] gate training: {json.dumps(train)}")
+    return train
+
+
+def phase_gate_sample(tmp: str) -> dict:
+    """42b: GATE_N samples of each spec of GATE_EVALS from 42a's model, the
+    launches of each spec counted (26 a real eval a batch); then `report`
+    started through the script's command line in a process of its own (the
+    host's `sqrtm`s run beside phases 43 and 44; `phase_gate_report` reads
+    it)."""
+    specs = {}
+    with environ(QG_DIR=os.path.join(tmp, "quality_gate")):
+        out_dir = os.path.join(qg.gate_dir(), GATE_GEO)
+        vae = qg._gate_vae(qg.geometry(GATE_GEO), "cuda")
+        extractor = qg._extractor("cuda")
+        for spec, evals in GATE_EVALS.items():
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            fields = qg.run_spec(GATE_GEO, spec, out_dir, GATE_N, GATE_BATCH, "cuda",
+                                 vae=vae, extractor=extractor)
+            counts = read_counts()
+            want = UVIT_T2I_BLOCKS * evals * (GATE_N // GATE_BATCH)
+            assert counts == {k: want if k == "fused_attention_qkv" else 0 for k in counts}, \
+                (spec, counts, want)
+            specs[spec] = dict(samples_per_s=GATE_N / fields["wall"], sample_s=fields["sample_s"],
+                               extract_s=fields["extract_s"], launches=want,
+                               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+            assert np.isfinite(fields["acts"]).all() and fields["mask_hist"].sum() > 0
+            print(f"[42] gate {spec}: {json.dumps(specs[spec])} (times measured beside 44's "
+                  f"four processes on the same card and host: contended, not the port's own)")
+        del vae, extractor
+        report = subprocess.Popen(
+            [sys.executable, "-m", "panopticdiffusionmodels_torch.scripts.quality_gate",
+             GATE_GEO, "report"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return dict(specs=specs, report=report, out_dir=out_dir, report_t0=time.perf_counter())
+
+
+def phase_gate_report(gate: dict) -> dict:
+    """42c: the report's process (a device-free command), its table, and
+    report.json well formed: finite floors, every mode with a verdict."""
+    proc = gate.pop("report")
+    try:
+        log = proc.communicate(timeout=600)[0]
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, log
+    report_s = time.perf_counter() - gate.pop("report_t0")
+    print("\n".join(f"[42] {line}" for line in log.strip().splitlines()))
+    with open(os.path.join(gate.pop("out_dir"), "report.json")) as f:
+        rep = json.load(f)
+    floors = [rep[k] for k in ("fd_floor", "kid_floor", "tv_floor", "latent_tv_floor")]
+    assert all(f is not None and np.isfinite(f) for f in floors), floors
+    assert sorted(rep["modes"]) == sorted(k for k in GATE_EVALS if not k.startswith("exact"))
+    assert rep["n"] == GATE_N and set(rep["channels"]) == {"image", "mask", "latent"}
+    verdicts = {m: e["verdict"] for m, e in rep["modes"].items()}
+    assert set(verdicts.values()) <= {"PASS", "MARGINAL", "FAIL", "UNARMED"}, verdicts
+    print(f"[42] gate report done {report_s:.1f} s after its start (host, beside 43 and 44): "
+          f"verdicts {verdicts}, arming {json.dumps(rep['channels'])}, floors FD "
+          f"{floors[0]:.4f} KID {floors[1]:.3e} mask TV {floors[2]:.5f} latent TV "
+          f"{floors[3]:.5f} ({card_line()})")
+    return dict(gate, report_s=report_s, verdicts=verdicts)
+
+
+def phase_rehearsal(tmp: str) -> dict:
+    """43: `scripts/eval_rehearsal.main` at REHEARSAL_N on the port bench's
+    U-ViT-L/2, no reference statistics (self-FD), its launches counted."""
+    with environ(REH_N=REHEARSAL_N, REH_BATCH=REHEARSAL_BATCH,
+                 REH_DIR=os.path.join(tmp, "rehearsal"),
+                 QG_DIR=os.path.join(tmp, "rehearsal_gate")):
+        zero_counts()
+        result = eval_rehearsal.main()
+        counts = read_counts()
+    requests = 1 + REHEARSAL_N // REHEARSAL_BATCH  # the warm-up request and the timed ones
+    want = requests * IMAGENET_LAUNCHES
+    assert counts == {k: want if k == "fused_attention_qkv" else 0 for k in counts}, counts
+    assert result["ref"] == "self" and result["n"] == REHEARSAL_N
+    print(f"[43] rehearsal: {json.dumps(result)}, {want} kernel-1 launches; times measured "
+          f"beside 44's four processes on the same card and host: contended, not the port's "
+          f"own ({card_line()})")
+    assert np.isfinite(result["fd_vs_ref"]) and abs(result["fd_vs_ref"]) < 1e-2, result
+    return dict(result, launches=want)
+
+
+def ppfsdp_child(rank: int, port: int, tmp: str) -> None:
+    """44: one of four processes on the one card over gloo at mesh.pp = 2,
+    mesh.fsdp = 2: (a) synthetic_tiny in f32, TINY_STEPS steps through
+    `fit`, the whole parameters and EMA to `tmp/ppfsdp_tiny{rank}.pt` (card
+    tensors: the gradients' reduce-scatter goes through the host); (b)
+    mscoco_uvit_small at batch 8, fine-tune mode: `rank_parity`, then 2 +
+    MESH_TIMED steps through `fit` with the launches counted, the share of
+    the block parameters held, to `tmp/ppfsdp{rank}.json`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=PPFSDP_WORLD, rank=rank)
+    try:
+        with no_tf32():
+            tiny = Trainer(mesh_tiny_config("ppfsdp"), os.path.join(tmp, f"ppfsdp_tiny_wd{rank}"),
+                           device="cuda:0")
+            tiny.fit()
+        whole = tiny.state.state_dict()
+        torch.save(dict(params={n: p.cpu() for n, p in whole["params"].items()},
+                        ema={n: p.cpu() for n, p in whole["ema_params"].items()},
+                        step=tiny.state.step), os.path.join(tmp, f"ppfsdp_tiny{rank}.pt"))
+        del tiny, whole
+        trainer = make_trainer("mscoco_uvit_small", os.path.join(tmp, f"ppfsdp{rank}"),
+                               mesh=dict(pp=2, fsdp=2), batch=MESH_BATCH)
+        parity = rank_parity(trainer)
+        trainer.fit(max_steps=2)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        history = trainer.fit(max_steps=2 + MESH_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        result = dict(parity=parity, launches=read_counts(), step_ms=wall / MESH_TIMED * 1e3,
+                      steps=MESH_TIMED, losses=[train_loss(m) for m in history],
+                      coords=trainer.dp.coords,
+                      block_share=block_share(trainer, "mscoco_uvit_small"),
+                      max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        with open(os.path.join(tmp, f"ppfsdp{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_pp_fsdp(tmp: str) -> tuple:
+    """44's four children, started (they run beside 42b-43)."""
+    port = free_port()
+    calls = [f"ppfsdp_child({r}, {port}, {tmp!r})" for r in range(PPFSDP_WORLD)]
+    return start_children(calls), time.perf_counter()
+
+
+def phase_pp_fsdp(tmp: str, started: tuple) -> dict:
+    """44: wait for the four children, then one process on the same work:
+    synthetic_tiny's parameters and EMA after TINY_STEPS (f32, TF32 off,
+    max absolute difference < 1e-5, as 38-40a) and the parity step's loss
+    and grad_norm (PP_LOSS_BAR / PP_NORM_BAR, as 39)."""
+    procs, t0 = started
+    wait_children(procs, timeout=900)
+    children_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(PPFSDP_WORLD):
+        with open(os.path.join(tmp, f"ppfsdp{r}.json")) as f:
+            ranks.append(json.load(f))
+    with no_tf32():
+        single = Trainer(mesh_tiny_config("one"), os.path.join(tmp, "ppfsdp_tiny_single"),
+                         device="cuda")
+        single.fit()
+    worst = 0.0
+    for r in range(PPFSDP_WORLD):
+        got = torch.load(os.path.join(tmp, f"ppfsdp_tiny{r}.pt"), weights_only=True)
+        assert got["step"] == TINY_STEPS
+        for name, p in single.state.params.items():
+            worst = max(worst,
+                        float((got["params"][name] - p.detach().cpu()).abs().max()),
+                        float((got["ema"][name] - single.state.ema[name].cpu()).abs().max()))
+    del single
+    one = one_process_parity(tmp)
+    for r, res in enumerate(ranks):
+        n = PP_MICRO * PP_STAGE_CALLS[res["coords"]["pp"]]
+        calls = {"fused_attention_qkv": n, "fused_attention_qkv_vjp": n}
+        assert res["launches"] == {k: calls.get(k, 0) * res["steps"] for k in res["launches"]}, \
+            (r, res["launches"])
+        assert np.isfinite(res["losses"]).all(), res["losses"]
+    loss_rel, norm_rel = parity_rels(ranks, one)
+    shares = [res["block_share"] for res in ranks]
+    print(f"[44] pp = 2 x fsdp = 2 over four gloo processes on one card: synthetic_tiny (f32) "
+          f"parameters and EMA after {TINY_STEPS} steps vs one process: max abs diff "
+          f"{worst:.2e} (bar 1e-5); mscoco_uvit_small "
+          f"B={MESH_BATCH}: parity step loss {[res['parity']['loss'] for res in ranks]} vs one "
+          f"process {one['loss']:.6f} (rel {loss_rel:.2e}, bar {PP_LOSS_BAR:.0e}), grad_norm "
+          f"{[res['parity']['grad_norm'] for res in ranks]} vs {one['grad_norm']:.6f} (rel "
+          f"{norm_rel:.2e}, bar {PP_NORM_BAR:.0e}); launches "
+          f"{[r['launches'] for r in ranks]} over {ranks[0]['steps']} steps, step "
+          f"{[round(r['step_ms'], 1) for r in ranks]} ms (gloo through the host, not judged), "
+          f"block parameters held {shares}, peak allocated "
+          f"{[round(r['max_memory_allocated_gb'], 3) for r in ranks]} GB, children "
+          f"{children_s:.1f} s beside 42b-43 ({card_line()})")
+    assert worst < 1e-5, worst
+    assert loss_rel < PP_LOSS_BAR and norm_rel < PP_NORM_BAR, (loss_rel, norm_rel)
+    assert abs(sum(shares) - 1.0) < 1e-9 and all(0.2 < x < 0.3 for x in shares), shares
+    return dict(ranks=ranks, loss_rel=loss_rel, grad_norm_rel=norm_rel, tiny_diff=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
               "card only", file=sys.stderr)
         return 1
+    start = time.perf_counter()
+
+    def mark(what: str) -> None:  # the script's wall time at the end of each group
+        print(f"[t] {what}: {time.perf_counter() - start:.1f} s since the start")
+
     phase_environment()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3309,6 +3648,7 @@ def main() -> int:
     mha_rows, mha_launches = phase_mha(gen)
     ln_rows = phase_ln_qkv(gen)
     chain, chain_counts = phase_chain()
+    mark("phases 1-3f")
     phase_forward(gen)
     phase_ring_forward(gen)
     pipe, contexts, launches, latency = phase_serving()
@@ -3325,6 +3665,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cifar_launches, _ = phase_cifar_serving()
     torch.cuda.empty_cache()
+    mark("phases 1-6g")
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = make_trainer("mscoco_uvit_small", tmp)
@@ -3363,6 +3704,7 @@ def main() -> int:
         phase_train_profile(pixel_trainer, pixel_step_s, "19")
         del pixel_trainer
         torch.cuda.empty_cache()
+    mark("phases 7-19")
 
     with tempfile.TemporaryDirectory() as tmp:
         eval_paths, sample_dir, eval_result = phase_eval(tmp)
@@ -3371,6 +3713,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_clip_score(tmp, sample_dir)
     torch.cuda.empty_cache()
+    mark("phases 20-23")
 
     with tempfile.TemporaryDirectory() as tmp:
         ddp = phase_ddp(tmp)
@@ -3385,6 +3728,7 @@ def main() -> int:
         phase_async_checkpoint(small, tmp)
         del small
         torch.cuda.empty_cache()
+    mark("phases 31-35")
 
     with tempfile.TemporaryDirectory() as tmp:
         unet_flops, _ = phase_unet_forward()
@@ -3399,6 +3743,7 @@ def main() -> int:
         huge_launches, huge_train_counts = phase_uvit_huge(huge_pipe, tmp)
         del huge_pipe
         torch.cuda.empty_cache()
+    mark("phases 25-30")
 
     with tempfile.TemporaryDirectory() as tmp:
         features, _ = phase_extract(tmp)
@@ -3419,6 +3764,28 @@ def main() -> int:
         phase_mesh_sampling(tmp)
         print(f"[38-41] wall: phases 38-40a {t1 - t0:.1f} s, 40b {t2 - t1:.1f} s, 41 "
               f"{time.perf_counter() - t2:.1f} s")
+    mark("phases 36-41")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 44's gloo children and 42's report (host) run beside 42b-43
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gate_train = phase_gate_train(tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        pp_started = start_pp_fsdp(tmp)
+        gate = phase_gate_sample(tmp)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        rehearsal = phase_rehearsal(tmp)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        pp_fsdp = phase_pp_fsdp(tmp, pp_started)
+        gate = phase_gate_report(dict(gate, train=gate_train))
+        print(f"[42-44] wall: gate training {t1 - t0:.1f} s, gate sampling {t2 - t1:.1f} s, "
+              f"rehearsal {t3 - t2:.1f} s, then pp x fsdp and the report "
+              f"{time.perf_counter() - t3:.1f} s")
+    mark("phases 42-44")
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -3471,7 +3838,16 @@ def main() -> int:
                           f"pp = 2 stage 0, mscoco_uvit_small ({MESH_TIMED} steps)":
                               mesh["pp"][0]["launches"]["fused_attention_qkv"],
                           f"pp = 2 stage 1, mscoco_uvit_small ({MESH_TIMED} steps)":
-                              mesh["pp"][1]["launches"]["fused_attention_qkv"]},
+                              mesh["pp"][1]["launches"]["fused_attention_qkv"],
+                          f"quality gate training, trained_panoptic ({gate['train']['steps']} "
+                          "steps)": gate["train"]["launches"]["fused_attention_qkv"],
+                          f"quality gate sampling, trained_panoptic ({len(gate['specs'])} "
+                          f"specs of {GATE_N})": sum(x["launches"]
+                                                     for x in gate["specs"].values()),
+                          f"evaluation rehearsal, U-ViT-L/2 ({REHEARSAL_N} samples and a "
+                          "warm-up request)": rehearsal["launches"],
+                          f"pp = 2 x fsdp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -3516,7 +3892,11 @@ def main() -> int:
                           f"pp = 2 stage 0, mscoco_uvit_small ({MESH_TIMED} steps)":
                               mesh["pp"][0]["launches"]["fused_attention_qkv_vjp"],
                           f"pp = 2 stage 1, mscoco_uvit_small ({MESH_TIMED} steps)":
-                              mesh["pp"][1]["launches"]["fused_attention_qkv_vjp"]},
+                              mesh["pp"][1]["launches"]["fused_attention_qkv_vjp"],
+                          f"quality gate training, trained_panoptic ({gate['train']['steps']} "
+                          "steps)": gate["train"]["launches"]["fused_attention_qkv_vjp"],
+                          f"pp = 2 x fsdp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
+                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,

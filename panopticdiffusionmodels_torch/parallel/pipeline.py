@@ -53,6 +53,20 @@ from torch import nn
 
 from .mesh import p2p
 
+# A carry's dtype on the wire, by its index here.  Under autocast the two
+# directions differ (an in-layer keeps the f32 residual, an out-layer
+# returns bf16), so every exchange first sends the dtypes of what follows
+# and each receive is posted in its send's dtype.
+_WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
+def _dtype_codes(tensors, device) -> torch.Tensor:
+    return torch.tensor([float(_WIRE_DTYPES.index(t.dtype)) for t in tensors], device=device)
+
+
+def _dtypes(codes: torch.Tensor) -> list:
+    return [_WIRE_DTYPES[int(c)] for c in codes.tolist()]
+
 Carry = Tuple[torch.Tensor, ...]
 
 
@@ -211,8 +225,19 @@ class ProcessExchange:
         below, above = (self.peers[s + 1] if s < pp - 1 else None,
                         self.peers[s - 1] if s > 0 else None)
         like = self._like
-        from_above = [torch.empty_like(t) for t in like] if above is not None else []
-        from_below = [torch.empty_like(t) for t in like] if below is not None else []
+        dev = like[0].device
+        codes = {peer: torch.empty(len(like), device=dev) for peer in (above, below)
+                 if peer is not None}
+        p2p([(_dtype_codes(ts, dev), peer) for ts, peer in ((to_below, below), (to_above, above))
+             if ts], list((c, peer) for peer, c in codes.items()), self.group)
+
+        def posted(peer):
+            if peer is None:
+                return []
+            return [torch.empty(t.shape, dtype=dt, device=dev)
+                    for t, dt in zip(like, _dtypes(codes[peer]))]
+
+        from_above, from_below = posted(above), posted(below)
         sends = [(t, below) for t in to_below] + [(t, above) for t in to_above]
         p2p(sends, [(t, above) for t in from_above] + [(t, below) for t in from_below],
             self.group)
@@ -238,10 +263,16 @@ class ProcessExchange:
     def collect(self, token, outputs, like, micro):
         """Stage 0's outputs, whole-batch, on every stage of pp (`like`: a
         microbatch's carry, `micro` microbatches)."""
+        dev = like[0].device
         if outputs is not None:
             mine = tuple(torch.cat(parts) for parts in zip(*outputs))
+            codes = _dtype_codes(mine, dev)
         else:
-            mine = tuple(t.new_empty((t.shape[0] * micro, *t.shape[1:])) for t in like)
+            codes = torch.empty(len(like), device=dev)
+        dist.broadcast(codes, self.peers[0], group=self.group)  # stage 0's dtypes
+        if outputs is None:
+            mine = tuple(t.new_empty((t.shape[0] * micro, *t.shape[1:]), dtype=dt)
+                         for t, dt in zip(like, _dtypes(codes)))
         if token is not None and token.requires_grad:
             return _Broadcast.apply(self, token, *mine)[1:]
         outs = []

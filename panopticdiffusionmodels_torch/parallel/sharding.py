@@ -18,6 +18,17 @@ A sharded parameter is a `DTensor`; the optimizer moments and the EMA made
 from it are sharded the same way.  Inside a unit's forward the gathered
 parameters are plain tensors, so the attention kernels see what they see
 in one process.
+
+Beside pp (`shard_stage`, `GatheredStage`) FSDP2 is not used: a pipeline
+stage calls each of its blocks once per microbatch and the trunk is entered
+through `embed` / `in_layer` / `head`, not the root's forward, so FSDP2's
+per-call hooks would neither gather the root's parameters nor reduce each
+unit once.  The stage's parameters are `DTensor`s sharded on dim 0 over
+fsdp as FSDP2 lays them out (so the state, its moments, EMA and checkpoint
+code are the same); a step gathers them whole once before the schedule
+and reduce-scatters their gradients once after the backward, as JAX's
+pp x fsdp program holds each stage's slice of the stacked layers whole
+while it runs.
 """
 from __future__ import annotations
 
@@ -25,6 +36,9 @@ import sys
 
 import torch
 import torch.distributed as dist
+from torch import nn
+
+from .mesh import host_staged
 
 
 def _units():
@@ -101,3 +115,71 @@ def shard_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
     return distribute_tensor(t.to(like.device, like.dtype), like.device_mesh, like.placements,
                              src_data_rank=None)
+
+
+def shard_stage(nnet: nn.Module, layout, device: torch.device) -> None:
+    """pp beside fsdp: every parameter of `nnet` (this stage's part) becomes
+    a `DTensor` sharded on dim 0 over the layout's fsdp axis, each rank
+    keeping its chunk of the whole tensor it holds (no communication, no
+    FSDP2 hooks).  Under dp beside them the shards are replicated over dp
+    and the trainer averages the gradient over dp itself."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    mesh = layout.device_mesh(torch.device(device).type)["fsdp"]
+    for module in nnet.modules():
+        for name, p in list(module.named_parameters(recurse=False)):
+            sharded = distribute_tensor(p.detach(), mesh, [Shard(0)], src_data_rank=None)
+            module.register_parameter(name, nn.Parameter(sharded, requires_grad=p.requires_grad))
+
+
+class GatheredStage(nn.Module):
+    """`inner` (a `Pipelined` stage over a network sharded by `shard_stage`)
+    run with its parameters whole.  `gather()` all-gathers them over fsdp
+    once a step and installs them in place of the shards, as leaves that
+    collect the gradient of every microbatch and micro-batch (and of a remat
+    replay in the backward); `scatter_grads()` puts the shards back and
+    reduce-scatters each gradient once, averaged over fsdp, into the
+    shard's `.grad` (a `DTensor` laid out as the parameter)."""
+
+    def __init__(self, inner: nn.Module, layout):
+        super().__init__()
+        self.inner = inner
+        self.fsdp = layout.fsdp
+        self.group = layout.group("fsdp")
+        self._slots = [(module, name) for module in inner.modules()
+                       for name, _ in module.named_parameters(recurse=False)]
+        self._shards = None
+
+    def gather(self) -> None:
+        with torch.no_grad():
+            self._shards = []
+            for module, name in self._slots:
+                p = module._parameters[name]
+                self._shards.append(p)
+                module._parameters[name] = nn.Parameter(full(p).detach(),
+                                                        requires_grad=p.requires_grad)
+
+    def forward(self, *args, **kwargs):
+        if self._shards is None:
+            raise RuntimeError("GatheredStage: call gather() before the step's forward")
+        return self.inner(*args, **kwargs)
+
+    def scatter_grads(self) -> None:
+        from torch.distributed.tensor import DTensor
+
+        for (module, name), p in zip(self._slots, self._shards):
+            g = module._parameters[name].grad
+            module._parameters[name] = p
+            if g is None:
+                continue
+            chunk = -(-g.shape[0] // self.fsdp)
+            padded = g.new_zeros((self.fsdp * chunk, *g.shape[1:]))
+            padded[:g.shape[0]] = g
+            staged = padded.is_cuda and host_staged(self.group)
+            src = padded.cpu() if staged else padded
+            out = src.new_empty((chunk, *g.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+            shard = (out[:local(p).shape[0]] / self.fsdp).to(p.device)
+            p.grad = DTensor.from_local(shard.contiguous(), p.device_mesh, p.placements,
+                                        run_check=False, shape=p.shape, stride=p.stride())
+        self._shards = None

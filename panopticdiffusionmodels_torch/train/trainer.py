@@ -52,7 +52,9 @@ images (`pixel_sde`, unconditional or class-conditional, reference
     and GEGLU) per head over tp (`parallel/tensor.py`); `mesh.pp > 1` keeps
     this stage's blocks and runs the trunk as JAX's boomerang pipeline
     (`parallel/pipeline.py`, `train.pp_microbatches`, default pp); what JAX
-    refuses under pp the trainer refuses with its reason;
+    refuses under pp the trainer refuses with its reason; beside fsdp a
+    stage's parameters are sharded over fsdp, gathered whole once a step
+    and their gradients reduce-scattered once (`sharding.GatheredStage`);
   * `mesh.sp > 1` trains sequence-parallel, as the JAX trainer does: the
     model's attention becomes the ring (`attn_impl='ring'`) over the
     layout's sp context, token streams that do not divide sp padded;
@@ -266,7 +268,10 @@ class Trainer:
         tp_rules = self._place(self.nnet)
         self.nnet.to(self.device)
         if self.fsdp is not None:  # before the state: its moments and EMA follow the shards
-            sharding.shard_model(self.nnet, self.fsdp, self.device)
+            if self.pp > 1:  # gathered once a step, around the pipeline schedule
+                sharding.shard_stage(self.nnet, self.fsdp, self.device)
+            else:
+                sharding.shard_model(self.nnet, self.fsdp, self.device)
         self.placement = None
         if self.dp is not None and not self.dp.pure_data_parallel:
             self.placement = Placement(self.dp, full_names, tp_rules,
@@ -279,6 +284,8 @@ class Trainer:
         self.model = self.nnet
         if self.pp > 1:
             self.model = Pipelined(self.nnet, ProcessExchange(self.dp), self.num_micro)
+            if self.fsdp is not None:
+                self.model = sharding.GatheredStage(self.model, self.fsdp)
         elif self.dp is not None and self.dp.pure_data_parallel:
             self.model = torch.nn.parallel.DistributedDataParallel(
                 self.nnet, device_ids=[self.device.index] if self.device.type == "cuda" else None,
@@ -303,7 +310,9 @@ class Trainer:
 
     def _check_layout(self, config) -> None:
         """What JAX's `Trainer.__init__` refuses under pp (l.157-189), with
-        its reasons; sets `num_micro` (`train.pp_microbatches`, default pp)."""
+        its reasons; sets `num_micro` (`train.pp_microbatches`, default pp).
+        pp beside fsdp (and dp) is accepted, as JAX accepts it: each stage's
+        parameters sharded over fsdp (`sharding.shard_stage`)."""
         self.num_micro = int(config.train.get("pp_microbatches", 0) or 0) or self.pp
         if self.pp == 1:
             return
@@ -317,10 +326,6 @@ class Trainer:
         if config.train.batch_size % (self.num_micro * shards):
             raise ValueError(f"batch_size {config.train.batch_size} must divide into "
                              f"{self.num_micro} microbatches x {shards} data shards")
-        if self.fsdp is not None:
-            raise ValueError("mesh.pp>1 beside mesh.fsdp>1: a pipeline stage sharded over "
-                             "fsdp is not ported (FSDP2 gathers at each call of a block, and a "
-                             "stage calls each block once per microbatch)")
 
     def _place(self, nnet) -> dict:
         """Cut the whole network `nnet` to this rank's part, in place: its tp
@@ -469,6 +474,9 @@ class Trainer:
         # gradient is the mean of theirs, the metrics the mean of theirs.
         micro = [tuple(x.chunk(accum)) for x in batch]
         parts = []
+        staged = isinstance(self.model, sharding.GatheredStage)
+        if staged:  # the stage's parameters whole for every micro-batch of the step
+            self.model.gather()
         for i in range(accum):
             mn = {k: v.chunk(accum)[i] for k, v in noise.items()}
             last = i == accum - 1
@@ -477,8 +485,11 @@ class Trainer:
                 (loss / (accum * world)).backward()
             parts.append(m)
         metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
+        if staged:  # averaged over fsdp; over dp below
+            self.model.scatter_grads()
         if self.placement is not None:
-            self.placement.reduce_grads(self.state.params, manual_data=self.fsdp is None)
+            self.placement.reduce_grads(self.state.params,
+                                        manual_data=self.fsdp is None or staged)
         if self.dp is not None:
             names = sorted(metrics)
             mean = torch.stack([metrics[k] for k in names])
@@ -496,7 +507,7 @@ class Trainer:
         """The context of one micro-batch's backward: with `sync` False a
         data-parallel run keeps its gradients local (DDP's `no_sync`; FSDP's
         `set_requires_gradient_sync(False)`, which keeps them unsharded)."""
-        if self.fsdp is not None:
+        if self.fsdp is not None and self.pp == 1:
             self.nnet.set_requires_gradient_sync(sync)
         elif self.dp is not None and self.dp.pure_data_parallel and not sync:
             return self.model.no_sync()

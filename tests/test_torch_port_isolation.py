@@ -39,6 +39,11 @@ DATA_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
 MESH_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
     "parallel.mesh", "parallel.tensor", "parallel.pipeline", "parallel.placement",
     "parallel.sharding")]
+# the modules of the quality gate and the evaluation rehearsal (their scripts
+# and the bench they build on), which the walk must reach
+GATE_MODULES = ["panopticdiffusionmodels_torch." + m for m in (
+    "scripts.quality_gate", "scripts.eval_rehearsal", "scripts.bench_panoptic_modes",
+    "scripts.bench")]
 # packages the port must not come to need: CLIP's tokenizer and weights are read
 # by its own code
 NOT_LOADED = ("transformers", "flax", "regex", "ftfy", "safetensors")
@@ -58,6 +63,7 @@ print("UNET:", all(m in sys.modules for m in {UNET_MODULES!r}))
 print("DDP:", all(m in sys.modules for m in {DDP_MODULES!r}))
 print("DATA:", all(m in sys.modules for m in {DATA_MODULES!r}))
 print("MESH:", all(m in sys.modules for m in {MESH_MODULES!r}))
+print("GATE:", all(m in sys.modules for m in {GATE_MODULES!r}))
 print("LOADED:", sorted(m for m in sys.modules if m.split(".")[0] in {NOT_LOADED!r}))
 """
 
@@ -75,6 +81,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "DDP: True" in out.stdout, out.stdout
     assert "DATA: True" in out.stdout, out.stdout
     assert "MESH: True" in out.stdout, out.stdout
+    assert "GATE: True" in out.stdout, out.stdout
     assert "LOADED: []" in out.stdout, out.stdout
 
 

@@ -16,7 +16,7 @@ and the ground-truth mode, at 1e-5.
 Every layout JAX's `Trainer` refuses under pp (pp beside sp or tp, pp or sp
 for the UNet, depth/2 or the batch not dividing) the port's refuses with
 the same `ValueError` message, the world faked at JAX's 8 devices; pp
-beside fsdp, which JAX runs, the port refuses.
+beside fsdp, which JAX runs, the port lays out and accepts too.
 """
 import functools
 
@@ -197,12 +197,28 @@ def test_what_jax_refuses_under_pp_the_port_refuses_with_its_reason(case, tmp_pa
     assert str(e.value) == reason
 
 
-def test_pp_beside_fsdp_raises(tmp_path, monkeypatch):
-    """JAX runs it; the port refuses it rather than train it otherwise."""
+def test_pp_beside_fsdp_builds_its_layout(monkeypatch):
+    """JAX runs pp beside fsdp, and so does the port: over JAX's 8 devices as
+    processes the layout is (pp, dp, fsdp) = (2, 2, 2), row-major with pp
+    outermost, each stage's fsdp peers loading their own rows, and the
+    trainer's layout check accepts it (the run itself:
+    `test_torch_port_pp_fsdp_gloo.py`)."""
+    from panopticdiffusionmodels_torch.parallel.mesh import FullyShardedDataParallel, from_mesh
+
     config = get_config("synthetic_tiny")
     config.mesh.update(pp=2, fsdp=2)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 8)
-    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 0)
-    with pytest.raises(ValueError, match="pipeline stage sharded over fsdp"):
-        Trainer(config, str(tmp_path), device="cpu")
+    for rank in range(8):
+        monkeypatch.setattr(dist, "get_rank", lambda *a, r=rank, **k: r)
+        layout = from_mesh(config.mesh)
+        assert isinstance(layout, FullyShardedDataParallel)
+        assert (layout.pp, layout.dp, layout.fsdp) == (2, 2, 2)
+        assert layout.coords == dict(pp=rank // 4, dp=rank // 2 % 2, fsdp=rank % 2, sp=0, tp=0)
+        assert layout.peers("fsdp") == [rank - rank % 2, rank - rank % 2 + 1]
+        assert layout.peers("pp") == [rank % 4, rank % 4 + 4]
+        assert layout.data_rank == rank % 4 and layout.data_peers() == [rank % 4, rank % 4 + 4]
+        trainer = Trainer.__new__(Trainer)
+        trainer.dp, trainer.fsdp, trainer.pp = layout, layout, layout.pp
+        trainer._check_layout(config)
+        assert trainer.num_micro == 2

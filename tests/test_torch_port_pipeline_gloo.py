@@ -20,7 +20,10 @@ global batch of 16 in f32 and held at rtol / atol 1e-5
     beside dp = 2 over four processes: three steps each on the same batches,
     against one process; the first two also against the JAX `Trainer` at
     mesh.pp = 2 with the same `pp_microbatches` / `grad_accum` (whose draws
-    grad_accum takes: the JAX step splits its key over the micro-batches).
+    grad_accum takes: the JAX step splits its key over the micro-batches);
+  * pp = 2 under bf16 autocast against one process under it (the carries'
+    dtypes differ by direction): losses at rtol 1e-4, grad_norm at 1e-2,
+    parameters and EMA at atol 2e-5.
 """
 import numpy as np
 import pytest
@@ -56,16 +59,19 @@ def runs(tmp_path_factory):
     accum_spec = dict(init=init, steps=accum_steps, config=dict(
         mesh=dict(pp=2), train=dict(grad_accum=2)))
     dp_spec = dict(init=init, steps=steps[:STEPS], config=dict(mesh=dict(pp=2, dp=2)))
+    bf16_spec = dict(init=init, steps=steps[:STEPS],
+                     config=dict(mesh=dict(pp=2), compute_dtype="bfloat16"))
     refs = dict(pp=mc.one_process(tmp, "pp_one", pp_spec))  # writes one_ckpt first
     procs = dict(pp=mc.start(tmp, "pp", 2, pp_spec), micro=mc.start(tmp, "micro", 2, micro_spec),
                  accum=mc.start(tmp, "accum", 2, accum_spec),
-                 ppdp=mc.start(tmp, "ppdp", 4, dp_spec))
+                 ppdp=mc.start(tmp, "ppdp", 4, dp_spec), bf16=mc.start(tmp, "bf16", 2, bf16_spec))
     jax_runs = dict(pp=jax_mesh_steps(jt, raw[:STEPS]))
     for job, spec in (("micro", micro_spec), ("accum", accum_spec)):
         trainer = jax_mesh_trainer(tmp / f"jax_{job}", dict(pp=2), nnet=scan,
                                    train=spec["config"]["train"])
         jax_runs[job] = jax_mesh_steps(trainer, raw[:STEPS])
     refs["accum"] = mc.one_process(tmp, "accum_one", accum_spec)
+    refs["bf16"] = mc.one_process(tmp, "bf16_one", bf16_spec)
     got = {job: mc.finish(tmp, job, p) for job, p in procs.items()}
     return dict(tmp=tmp, got=got, refs=refs, jax=jax_runs, pp_spec=pp_spec)
 
@@ -94,6 +100,25 @@ def test_pp_variants_equal_one_process(runs, job):
     for g in got:
         mc.assert_metrics(g["metrics"], ref["metrics"], f"{job} vs one process")
     mc.assert_state(got[0]["state"], ref["state"], f"{job} vs one process")
+
+
+def test_pp_under_bf16_autocast_equals_one_process(runs):
+    """Under autocast the out-layers return bf16 carries while the in-layers
+    keep f32 ones: each exchange must post its receives in the sender's
+    dtype.  Posted in the receiver's own dtype, a bf16 carry landed in an
+    f32 buffer (half of it the sent bytes, the rest whatever memory held):
+    loss 1.3e-3-2.7e-3, grad_norm 0.21-0.27 and parameters 1.2e-4 from one
+    process on this job.  Received right, what is left is bf16's rounding of
+    the GEMMs of two microbatches of 8 rows, not one of 16: losses 1.9e-5, grad_norm
+    2.8e-3, parameters and EMA 7.1e-6."""
+    got, ref = runs["got"]["bf16"], runs["refs"]["bf16"]
+    for g in got:
+        mc.assert_metrics(g["metrics"], ref["metrics"], "bf16 pp vs one process",
+                          keys=("loss", "loss_mask"), tol=dict(rtol=1e-4, atol=0))
+        mc.assert_metrics(g["metrics"], ref["metrics"], "bf16 pp vs one process",
+                          keys=("grad_norm",), tol=dict(rtol=1e-2, atol=0))
+    mc.assert_state(got[0]["state"], ref["state"], "bf16 pp vs one process",
+                    tol=dict(rtol=0, atol=2e-5))
 
 
 @pytest.mark.parametrize("job", ["micro", "accum"])

@@ -1,6 +1,6 @@
 """One rank of the process-mesh runs of `test_torch_port_tensor_parallel.py`,
-`test_torch_port_pipeline_gloo.py` and `test_torch_port_sp_layouts.py` (not
-collected itself):
+`test_torch_port_pipeline_gloo.py`, `test_torch_port_pp_fsdp_gloo.py` and
+`test_torch_port_sp_layouts.py` (not collected itself):
 
     python tests/torch_port_mesh_worker.py RANK WORLD PORT OUT_DIR JOB
 
@@ -25,7 +25,8 @@ After the steps every rank enters the train state's gathers and rank 0
 writes its checkpoint under OUT_DIR/JOB_ckpts.  Each rank writes
 OUT_DIR/JOB_rank{RANK}.pt: its layout's coordinates, the metrics of each
 step, the whole state after the steps (`TrainState.state_dict()`, one
-process's), the elements it holds of each parameter, the samples, and the
+process's), the elements it holds of each parameter, of its EMA and of its
+AdamW moments, the samples, and the
 whole state after the resumed step, the streamed batches and the input
 pipeline that read them.
 """
@@ -105,6 +106,11 @@ def run_job(spec: dict, out_dir: str, job: str, rank: int) -> dict:
                is_main=trainer.is_main,
                metrics=[step(trainer, b, d) for b, d in spec["steps"]],
                held={n: local(p).numel() for n, p in trainer.state.params.items()})
+    out["held_ema"] = {n: local(e).numel() for n, e in trainer.state.ema.items()}
+    out["held_moments"] = {n: sum(local(v).numel() for v in st.values() if torch.is_tensor(v)
+                                  and v.dim())
+                           for n, p in trainer.state.params.items()
+                           if (st := trainer.state.optimizer.state.get(p))}
     out["state"] = whole(trainer)
     ckpt_lib.save_checkpoint(os.path.join(out_dir, f"{job}_ckpts"), trainer.state,
                              write=trainer.is_main)
