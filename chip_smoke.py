@@ -22,15 +22,19 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
   2. build: every hand-written kernel of the paths, from `csrc/`, with nvcc
      (one process per source, all at once), with ptxas' registers, spills,
      shared memory and wgmma warnings per kernel (named with its template
-     arguments), and the dynamic shared memory of the wgmma attention loop,
-     the wgmma backward kernels and the LN-prologue GEMM;
+     arguments; the wgmma kernels must report no spills), the dynamic shared
+     memory of the wgmma attention loop and the wgmma backward kernels at
+     head dims 64 and 72 and of the LN-prologue GEMM, and each library's
+     choice of loop per head dim: kernels 1, 2 and 4 take the wgmma loop at
+     64 and 72 and mma.sync at 40, the hop the wgmma loop at 64 only;
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
      and training shapes, the pixel-space ones among them (U-ViT-M/4 at
      (64, 258, 12, 64), U-ViT-S/2 at (32, 257, 8, 64) and, with lse, at
      (128, 257, 8, 64)) and U-ViT-H/2 serving at (64, 258, 16, 72)
      (relative deviation < 5e-3, and where L is not a
      whole number of 64-row tiles the tail rows on their own: < 5e-3, lse
-     < 1e-4), each shape with the loop it took (wgmma + TMA for head dim 64, mma.sync for the others);
+     < 1e-4), each shape with the loop it took (wgmma + TMA for head dims 64 and 72, mma.sync
+     for the others), ragged D = 72 rows at L = 37 and 65 among them;
      timed in turns with `scaled_dot_product_attention`, its yardstick
      (library, kernel, kernel, library, 5 times: medians and spreads), and
      beside the plain version; the forward with its lse output is
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      ragged short L (relative deviation
      of dqkv < 5e-3 against each, the tail rows past the last whole tile
      < 5e-3 on their own), each shape with the loop it took (wgmma +
-     TMA for head dim 64, mma.sync for the others); two calls bit-identical
+     TMA for head dims 64 and 72, mma.sync for the others; ragged D = 72
+     rows at L = 37 and 65 among them); two calls bit-identical
      (no atomics); timed in turns with SDPA's backward, and both again with
      the L2 flushed (64 MB) before every launch; beside the plain version;
      3c. the ring-hop kernel vs `attention_hop_plain` at the 512-res and
@@ -272,7 +277,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      difference < 1e-5); mscoco_uvit_small at the global batch of 64, 26 +
      26 kernel calls a step in each rank, each rank's bytes of parameters,
      gradients, moments and EMA against one process's (< 0.55), its step
-     time (gloo copies through the host; not judged);
+     time (gloo copies through the host; not judged); its two processes run
+     beside 38-41's;
  38. tensor parallelism: two processes on the one card over gloo at
      mesh.tp = 2: synthetic_tiny in f32 with two heads, the gathered
      parameters and EMA after 3 steps against one process (max absolute
@@ -386,7 +392,7 @@ PEAK_BYTES = 3.35e12
 # L = 2 + 256), U-ViT-S/2 CIFAR-10 serving (32 images, L = 1 + 256, one row
 # past 4 x 64) and its training at batch 128 (with lse).
 # The UNet-family slice: U-ViT-H/2 serving at ImageNet-256 (CFG 2x32, 16
-# heads of 72) on the mma.sync loop.
+# heads of 72), on the wgmma loop since its redesign at head dim 72.
 # The rest of distributed: the panoptic training shapes at tp = 2, H/2 = 4
 # heads on each rank.
 # The quality gate's 512-res geometry (trained_panoptic_512, the
@@ -396,7 +402,8 @@ KERNEL_SHAPES = [(8, 334, 8, 64), (8, 590, 8, 64), (32, 258, 16, 64), (8, 258, 1
                  (64, 334, 8, 64), (64, 590, 8, 64), (64, 258, 16, 64),
                  (64, 258, 12, 64), (32, 257, 8, 64), (128, 257, 8, 64), (64, 258, 16, 72),
                  (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64),
-                 (64, 1102, 8, 64), (64, 2126, 8, 64), (32, 1102, 8, 64), (32, 2126, 8, 64)]
+                 (64, 1102, 8, 64), (64, 2126, 8, 64), (32, 1102, 8, 64), (32, 2126, 8, 64),
+                 (2, 37, 16, 72), (2, 65, 16, 72)]
 MAIN_PATH_SHAPES = KERNEL_SHAPES[:2]
 TRAIN_SHAPES = KERNEL_SHAPES[4:6]
 IMAGENET_SHAPE = KERNEL_SHAPES[6]
@@ -406,11 +413,11 @@ MID_TRAIN_SHAPE = KERNEL_SHAPES[11]  # mscoco_uvit_mid training at batch 32, wit
 TP_SHAPES = KERNEL_SHAPES[12:14]
 GATE_512_SHAPES = KERNEL_SHAPES[14:18]
 # Backward: the training shapes, U-ViT-L/2 and U-ViT-H, and two ragged short
-# L (one partial tile; one row past a tile).
+# L (one partial tile; one row past a tile) at head dims 64 and (last) 72.
 BWD_SHAPES = [(64, 334, 8, 64), (64, 590, 8, 64), (32, 258, 16, 64), (8, 258, 16, 72),
               (2, 37, 8, 64), (2, 65, 8, 64), (64, 258, 16, 64), (128, 257, 8, 64),
               (32, 258, 16, 72), (32, 334, 12, 64), (64, 334, 4, 64), (64, 590, 4, 64),
-              (32, 1102, 8, 64), (32, 2126, 8, 64)]
+              (32, 1102, 8, 64), (32, 2126, 8, 64), (2, 37, 16, 72), (2, 65, 16, 72)]
 # U-ViT-L/2 latent_discrete training at batch 64: the lse forward (phase 3's
 # row IMAGENET_SHAPE) and the backward at this shape; CIFAR-10 pixel_sde
 # training at batch 128 (phase 3's last row with lse, and the backward).
@@ -421,6 +428,7 @@ MID_BWD_SHAPE = BWD_SHAPES[9]  # mscoco_uvit_mid's image-only step at batch 32
 TP_BWD_SHAPES = BWD_SHAPES[10:12]  # the panoptic step at tp = 2
 GATE_512_BWD_SHAPES = BWD_SHAPES[12:14]  # the 512-res gate model's training step
 TILE_ROWS = 64  # the kernels' row tile: rows past the last whole tile are the tail
+WGMMA_DIMS = (64, 72)  # head dims of the wgmma loops of kernels 1, 2 and 4
 LAUNCHES_PER_REQUEST = 1300
 REQUESTS, PER_REQUEST, STEPS = 3, 4, 50
 # Training: batch of the config, 3 warm-up and 20 timed steps; 13 blocks per
@@ -606,7 +614,7 @@ MESH_SAMPLES, MESH_SAMPLE_STEPS = 4, 6
 # launches each.  The rehearsal (43): REHEARSAL_N samples in batches of 32,
 # one warm-up request before, 21 x 50 launches a request.  pp x fsdp (44):
 # four gloo processes.
-GATE_TRAIN_S, GATE_BATCH, GATE_N = 90.0, 32, 128
+GATE_TRAIN_S, GATE_BATCH, GATE_N = 45.0, 32, 128
 GATE_EVALS = {"exactA": STEPS, "exactB": STEPS, "steps=25": 25, "steps=3": 3,
               "gelu_accel=0.2": RECOMMENDED_EVALS}
 REHEARSAL_N, REHEARSAL_BATCH = 64, 32
@@ -747,12 +755,23 @@ def phase_build():
                 kernel = kernel_name(line.split("'")[1])
             elif "registers" in line or "spill" in line or "C75" in line:
                 print(f"    {name} [{kernel}]: {line.strip()}")
-    bwd = fqa.attention_bwd_tma_smem_bytes()
-    print(f"[2] dynamic shared memory a CTA: attention wgmma loop "
-          f"{fqa.attention_tma_smem_bytes()} B (2 CTAs an SM; the hop's too), backward "
-          f"dq_tma_kernel {bwd['dq_tma_kernel']} B, dkv_tma_kernel "
-          f"{bwd['dkv_tma_kernel']} B (1 CTA an SM each), LN-prologue GEMM "
-          f"{fl.gemm_smem_bytes()} B (1 CTA an SM)")
+            if "tma_kernel" in kernel and "spill" in line:
+                assert "0 bytes spill stores, 0 bytes spill loads" in line, (name, kernel, line)
+    for d in WGMMA_DIMS:
+        bwd = fqa.attention_bwd_tma_smem_bytes(d)
+        print(f"[2] dynamic shared memory a CTA at D = {d}: attention wgmma loop "
+              f"{fqa.attention_tma_smem_bytes(d)} B (2 CTAs an SM), backward dq_tma_kernel "
+              f"{bwd['dq_tma_kernel']} B, dkv_tma_kernel {bwd['dkv_tma_kernel']} B (1 CTA an SM "
+              f"each)")
+    print(f"[2] LN-prologue GEMM {fl.gemm_smem_bytes()} B (1 CTA an SM)")
+    loops = {d: (fqa.attention_loop(d), fqa.attention_bwd_loop(d),
+                 fqa.attention_loop(d, fa.NAME), ring_hop.hop_loop(d)) for d in (*WGMMA_DIMS, 40)}
+    for d, got in loops.items():
+        print(f"[2] D = {d}: kernel 1 {got[0]}, kernel 2 {got[1]}, kernel 4 {got[2]}, "
+              f"kernel 3 (hop) {got[3]}")
+    want = {64: ("wgmma+tma",) * 4, 72: ("wgmma+tma",) * 3 + ("mma.sync",),
+            40: ("mma.sync",) * 4}
+    assert loops == want, loops
 
 
 def phase_kernel(gen):
@@ -1287,11 +1306,15 @@ def phase_serving():
 def device_profile(fn, tag: str, what: str, unprofiled_s: float):
     """fn() under torch.profiler: device time by kernel, and the device's busy
     share of the wall time (the profiler slows the host, so the share is also
-    given against the unprofiled time of the same work)."""
+    given against the unprofiled time of the same work).  CUDA activity only:
+    the kernels and busy time are those that CPU + CUDA tracing records (a
+    panoptic request: 31,451 / 31,461 kernels, 242.8 / 242.9 ms busy on an
+    H100), and the trace takes a third of the host time to collect (7.4 s
+    against 20.4 s of `key_averages` for that request)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2385,10 +2408,19 @@ def phase_uvit_huge(pipe, tmp):
 
 
 
+ISSUED_PORTS = set()
+
+
 def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+    """A free localhost port that this process has not handed out before:
+    children started earlier may not have bound theirs yet."""
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        if port not in ISSUED_PORTS:
+            ISSUED_PORTS.add(port)
+            return port
 
 
 def start_children(calls, extra_env=None) -> list:
@@ -3040,16 +3072,22 @@ def fsdp_child(rank: int, port: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_fsdp(tmp: str) -> dict:
-    """37: two gloo processes on the one card at mesh.fsdp = 2 (NCCL refuses
-    two ranks on one card): synthetic_tiny's gathered parameters and EMA
-    after 3 steps against one process at the global batch (f32 with TF32
-    off, max absolute difference < 1e-5); mscoco_uvit_small's launches a
-    step (26 + 26 in each rank), the bytes of the train state each rank
-    holds against what one process holds (about half), and its step time,
-    which gloo's copies through the host dominate (recorded, not judged)."""
+def start_fsdp(tmp: str) -> list:
+    """37's two children, started (they run beside 38-41)."""
     port = free_port()
-    run_children([f"fsdp_child({r}, {port}, {tmp!r})" for r in range(FSDP_WORLD)], timeout=600)
+    return start_children([f"fsdp_child({r}, {port}, {tmp!r})" for r in range(FSDP_WORLD)])
+
+
+def phase_fsdp(tmp: str, procs: list) -> dict:
+    """37: two gloo processes on the one card at mesh.fsdp = 2 (NCCL refuses
+    two ranks on one card), started by `start_fsdp`: synthetic_tiny's
+    gathered parameters and EMA after 3 steps against one process at the
+    global batch (f32 with TF32 off, max absolute difference < 1e-5);
+    mscoco_uvit_small's launches a step (26 + 26 in each rank), the bytes of
+    the train state each rank holds against what one process holds (about
+    half), and its step time, which gloo's copies through the host dominate
+    and 38-41's processes share (recorded, not judged)."""
+    wait_children(procs, timeout=900)
     with no_tf32():
         single = Trainer(tiny_f32_config(), os.path.join(tmp, "fsdp_tiny_single"),
                          device="cuda")
@@ -3076,8 +3114,8 @@ def phase_fsdp(tmp: str) -> dict:
           f"EMA after {TINY_STEPS} steps vs one process at B={TINY_BATCH}: max abs diff "
           f"{worst:.2e} (bar 1e-5); mscoco_uvit_small B=64 (32 a rank): launches a step "
           f"{smalls[0]['launches']} / {FSDP_TIMED}, step {smalls[0]['step_ms']:.1f} / "
-          f"{smalls[1]['step_ms']:.1f} ms (gloo through the host, not judged), train state "
-          f"held a rank {[r['held'] for r in smalls]}, share of one process's "
+          f"{smalls[1]['step_ms']:.1f} ms (gloo through the host, beside 38-41, not judged), "
+          f"train state held a rank {[r['held'] for r in smalls]}, share of one process's "
           f"{[round(x, 4) for x in shares]}, peak allocated "
           f"{[round(r['max_memory_allocated_gb'], 3) for r in smalls]} GB ({card_line()})")
     assert worst < 1e-5, worst
@@ -3636,44 +3674,68 @@ def main() -> int:
         return 1
     start = time.perf_counter()
 
-    def mark(what: str) -> None:  # the script's wall time at the end of each group
-        print(f"[t] {what}: {time.perf_counter() - start:.1f} s since the start")
+    last = [start]
+
+    def mark(what: str) -> None:  # the script's wall time after each phase and group
+        now = time.perf_counter()
+        print(f"[t] {what}: {now - start:.1f} s since the start (+{now - last[0]:.1f} s)")
+        last[0] = now
 
     phase_environment()
+    mark("phase_environment")
     phase_build()
+    mark("phase_build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernel(gen)
+    mark("phase_kernel")
     bwd_rows = phase_backward(gen)
+    mark("phase_backward")
     hop_rows = phase_hop(gen)
+    mark("phase_hop")
     mha_rows, mha_launches = phase_mha(gen)
+    mark("phase_mha")
     ln_rows = phase_ln_qkv(gen)
+    mark("phase_ln_qkv")
     chain, chain_counts = phase_chain()
+    mark("phase_chain")
     mark("phases 1-3f")
     phase_forward(gen)
+    mark("phase_forward")
     phase_ring_forward(gen)
+    mark("phase_ring_forward")
     pipe, contexts, launches, latency = phase_serving()
+    mark("phase_serving")
     phase_profile(pipe, contexts, latency)
+    mark("phase_profile")
     panoptic_speed_launches = phase_panoptic_speed_modes(pipe, contexts)
+    mark("phase_panoptic_speed_modes")
     del pipe
     pipe, imagenet_launches, imagenet_result = phase_imagenet()
+    mark("phase_imagenet")
     recommended_launches = phase_imagenet_recommended(pipe, imagenet_result)
+    mark("phase_imagenet_recommended")
     del pipe
     torch.cuda.empty_cache()
     bench_record, bench_launches = phase_bench()
+    mark("phase_bench")
     torch.cuda.empty_cache()
     imagenet64_launches, _ = phase_imagenet64()
+    mark("phase_imagenet64")
     torch.cuda.empty_cache()
     cifar_launches, _ = phase_cifar_serving()
+    mark("phase_cifar_serving")
     torch.cuda.empty_cache()
     mark("phases 1-6g")
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = make_trainer("mscoco_uvit_small", tmp)
         phase_train_parity(trainer, PARITY_BATCH, ("auto", "plain"), "7")
+        mark("phase_train_parity")
         train_counts, step_s = phase_train(
             trainer, "8", {"fused_attention_qkv": LAUNCHES_PER_STEP,
                            "fused_attention_qkv_vjp": LAUNCHES_PER_STEP})
         phase_train_profile(trainer, step_s, "9")
+        mark("phase_train_profile")
         del trainer
         torch.cuda.empty_cache()
 
@@ -3681,87 +3743,116 @@ def main() -> int:
                                   mesh=dict(sp=SP, sp_mode="in_process"))
         assert sp_trainer.config.train.batch_size == SP_BATCH
         phase_train_parity(sp_trainer, SP_BATCH, ("ring", "ring_plain"), "11")
+        mark("phase_train_parity")
         sp_counts, sp_step_s = phase_train(sp_trainer, "12",
                                            {"attention_hop": HOP_LAUNCHES_PER_STEP})
         phase_train_profile(sp_trainer, sp_step_s, "13")
+        mark("phase_train_profile")
         del sp_trainer
         torch.cuda.empty_cache()
 
         latent_trainer = make_latent_trainer(tmp)
         phase_train_parity(latent_trainer, PARITY_BATCH, ("auto", "plain"), "14")
+        mark("phase_train_parity")
         latent_counts, latent_step_s = phase_train(
             latent_trainer, "15", {"fused_attention_qkv": UVIT_L_BLOCKS,
                                    "fused_attention_qkv_vjp": UVIT_L_BLOCKS})
         phase_train_profile(latent_trainer, latent_step_s, "16")
+        mark("phase_train_profile")
         del latent_trainer
         torch.cuda.empty_cache()
 
         pixel_trainer = make_pixel_trainer(tmp)
         phase_train_parity(pixel_trainer, CIFAR_BATCH, ("auto", "plain"), "17")
+        mark("phase_train_parity")
         pixel_counts, pixel_step_s = phase_train(
             pixel_trainer, "18", {"fused_attention_qkv": CIFAR_BLOCKS,
                                   "fused_attention_qkv_vjp": CIFAR_BLOCKS})
         phase_train_profile(pixel_trainer, pixel_step_s, "19")
+        mark("phase_train_profile")
         del pixel_trainer
         torch.cuda.empty_cache()
     mark("phases 7-19")
 
     with tempfile.TemporaryDirectory() as tmp:
         eval_paths, sample_dir, eval_result = phase_eval(tmp)
+        mark("phase_eval")
         phase_inception(eval_paths)
+        mark("phase_inception")
         prompt_launches, _ = phase_prompts(tmp, latency)
+        mark("phase_prompts")
         torch.cuda.empty_cache()
         phase_clip_score(tmp, sample_dir)
+        mark("phase_clip_score")
     torch.cuda.empty_cache()
     mark("phases 20-23")
 
     with tempfile.TemporaryDirectory() as tmp:
         ddp = phase_ddp(tmp)
+        mark("phase_ddp")
         torch.cuda.empty_cache()
         small = make_trainer("mscoco_uvit_small", tmp)
         remat = phase_remat(small)
+        mark("phase_remat")
         recompute = phase_pallas_recompute(small)
+        mark("phase_pallas_recompute")
         mid_counts, _ = phase_image_only(tmp)
+        mark("phase_image_only")
         torch.cuda.empty_cache()
         sp_uvit_counts, _ = phase_sp_uvit(tmp)
+        mark("phase_sp_uvit")
         torch.cuda.empty_cache()
         phase_async_checkpoint(small, tmp)
+        mark("phase_async_checkpoint")
         del small
         torch.cuda.empty_cache()
     mark("phases 31-35")
 
     with tempfile.TemporaryDirectory() as tmp:
         unet_flops, _ = phase_unet_forward()
+        mark("phase_unet_forward")
         torch.cuda.empty_cache()
         phase_unet_serving(unet_flops)
+        mark("phase_unet_serving")
         torch.cuda.empty_cache()
         phase_unet_train(tmp)
+        mark("phase_unet_train")
         torch.cuda.empty_cache()
         phase_unet_512(tmp)
+        mark("phase_unet_512")
         torch.cuda.empty_cache()
         huge_pipe, zoo_launches = phase_zoo()
+        mark("phase_zoo")
         huge_launches, huge_train_counts = phase_uvit_huge(huge_pipe, tmp)
+        mark("phase_uvit_huge")
         del huge_pipe
         torch.cuda.empty_cache()
     mark("phases 25-30")
 
     with tempfile.TemporaryDirectory() as tmp:
         features, _ = phase_extract(tmp)
+        mark("phase_extract")
         torch.cuda.empty_cache()
         native_counts, _ = phase_native_train(tmp, features)
+        mark("phase_native_train")
         torch.cuda.empty_cache()
         phase_convert(tmp)
+        mark("phase_convert")
         torch.cuda.empty_cache()
-        fsdp = phase_fsdp(tmp)
-        torch.cuda.empty_cache()
+        fsdp_procs = start_fsdp(tmp)
         t0 = time.perf_counter()
         mesh = phase_mesh(tmp)
+        mark("phase_mesh")
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         uneven = phase_uneven_sp(tmp)
+        mark("phase_uneven_sp")
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
         phase_mesh_sampling(tmp)
+        mark("phase_mesh_sampling")
+        fsdp = phase_fsdp(tmp, fsdp_procs)
+        mark("phase_fsdp")
         print(f"[38-41] wall: phases 38-40a {t1 - t0:.1f} s, 40b {t2 - t1:.1f} s, 41 "
               f"{time.perf_counter() - t2:.1f} s")
     mark("phases 36-41")
@@ -3771,17 +3862,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         gate_train = phase_gate_train(tmp)
+        mark("phase_gate_train")
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         pp_started = start_pp_fsdp(tmp)
         gate = phase_gate_sample(tmp)
+        mark("phase_gate_sample")
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
         rehearsal = phase_rehearsal(tmp)
+        mark("phase_rehearsal")
         torch.cuda.empty_cache()
         t3 = time.perf_counter()
         pp_fsdp = phase_pp_fsdp(tmp, pp_started)
+        mark("phase_pp_fsdp")
         gate = phase_gate_report(dict(gate, train=gate_train))
+        mark("phase_gate_report")
         print(f"[42-44] wall: gate training {t1 - t0:.1f} s, gate sampling {t2 - t1:.1f} s, "
               f"rehearsal {t3 - t2:.1f} s, then pp x fsdp and the report "
               f"{time.perf_counter() - t3:.1f} s")

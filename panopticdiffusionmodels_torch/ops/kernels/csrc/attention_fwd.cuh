@@ -18,14 +18,15 @@
 // tile through registers between two __syncthreads and then computes leaves
 // the memory system and the tensor cores idle in turn.
 //
-// The wgmma loop (head dim 64: every main path of the port):
+// The wgmma loop (head dims 64 and 72: every main path of the port, U-ViT-H
+// among them):
 //   - one CTA owns 128 query rows of one (batch, head): two consumer
 //     warpgroups of 64 rows and one producer warp;
-//   - the producer loads each warpgroup's 64 x 64 Q tile once and then fills
-//     a 3-stage ring of 64-key K and V tiles with TMA, each stage signalled
-//     by a `full` mbarrier (TMA byte count) and released by an `empty`
-//     mbarrier (one arrival per consumer warp), so the next tiles are in
-//     flight while the consumers compute;
+//   - the producer loads each warpgroup's Q tile once and then fills a
+//     3-stage ring of 64-key K and V tiles with TMA, each stage signalled by
+//     a `full` mbarrier (TMA byte count) and released by an `empty` mbarrier
+//     (one arrival per consumer warp), so the next tiles are in flight while
+//     the consumers compute;
 //   - S = Q K^T is wgmma m64n64k16 with both operands in shared memory
 //     (K-major, 128-byte swizzle as TMA wrote them);
 //   - the online softmax runs on the accumulator in registers, log2 domain;
@@ -35,14 +36,36 @@
 //     through the transpose bit;
 //   - the division by the row sum is deferred to the epilogue, which stores
 //     out (and lse) straight from the accumulator.
-//   Two CTAs fit on an SM (65 KB of shared memory each, <= 113 registers a
-//   thread), so four consumer warpgroups share the tensor cores.
 //   Ragged L: TMA zero-fills rows past L (per batch: the packed map is 3-D,
 //   (3C, L, B), kernel 4's 4-D, (D, L, H, B)), keys >= L score -inf and rows
 //   >= L are not stored.  A warpgroup whose 64 rows all lie past L exits at
 //   once and the `empty` barriers count only the live ones, so L = 258 runs 3
 //   CTAs of (128, 128, 64) live rows, not 384: 320 rows against 258 useful,
 //   and 5 key tiles (320 keys).
+//
+// Head dim 72 (kD = 72).  A 144-byte row does not fit the 128-byte swizzle,
+// so each tile of Q, K or V is two TMA boxes on the stage's one `full`
+// barrier (byte count summed): columns 0-63 in the 128-byte swizzle as at
+// 64, and columns 64-71 as an unswizzled box of 64 rows of 16 bytes (1 KB),
+// whose 8-row groups are the 128-byte core matrices of wgmma's interleaved
+// layout.  The box sits in a 2 KB slot whose second kilobyte is zeroed once
+// a CTA, before the first load:
+//   - S's depth is padded to 80: four k16 steps on the swizzled boxes and a
+//     fifth on the slots, columns 64-71 then the zeros standing for 72-79
+//     (K-major, sbo 128, lbo 1024), in both Q and K, so the pad adds nothing
+//     and no column of another head is ever read (in kernel 1's packed map
+//     columns 72-79 of head h are head h + 1's first 8, and for the last
+//     head the next section's: TMA would not zero them);
+//   - O += P V has N = 72: the m64n64 products on V's swizzled box and four
+//     m64n8k16 products on its remainder box, read MN-major (8-key core
+//     matrices 128 bytes apart), into 4 more accumulators a thread (36);
+//   - 83 KB of shared memory a CTA (10 KB a tile: 2 Q tiles and 3 stages of
+//     K and V), so two CTAs still fit on an SM, as at 64 (65 KB).
+//   Two CTAs of 288 threads leave 112 registers a thread: ptxas gives the
+//   loop 96 at 64 and 95 at 72, no spills.  A 16-column remainder box in the
+//   32-byte swizzle with m64n16 products needed 115 at 72 and spilled, and
+//   it read the next head's columns 72-79, which then had to be zeroed in Q
+//   after every load.
 //
 // The hop mode (kHop, ring_hop.cu, kernel 3) is the same wgmma loop with
 // three changes: queries and keys have their own lengths (Lq = L, Lk); keys
@@ -51,14 +74,15 @@
 // -inf; and the epilogue stores o NOT divided by the row sum, with each
 // row's max m (natural units, -1e30 exactly for an all-padding row) and sum
 // den as (B, Lq, H) f32 in place of lse.  Every key tile is scored, padding
-// too: with nvalid = 0 the hop returns o = sum_j v_j and den = Lk.
+// too: with nvalid = 0 the hop returns o = sum_j v_j and den = Lk.  The hop
+// has its own predicate (ring_hop.cu: head dim 64 only), since no path runs
+// a hop at 72.
 //
-// Static dispatch on D: D = 64 takes the wgmma loop; every other D (a
-// multiple of 8 up to 128: 72 for U-ViT-H, 40 for the UNet) keeps the
-// mma.sync loop below (64-row CTAs of 4 warps, 64-key tiles loaded through
-// registers, D zero-padded to a multiple of 16 in shared memory).  A 144-byte
-// row does not fit the 128-byte swizzle.  pdm_attention_path(D) reports the
-// choice.
+// Static dispatch on D: D = 64 and 72 take the wgmma loop; every other D (a
+// multiple of 8 up to 128: 40 for the UNet, whose paths launch no kernel)
+// keeps the mma.sync loop below (64-row CTAs of 4 warps, 64-key tiles loaded
+// through registers, D zero-padded to a multiple of 16 in shared memory).
+// pdm_attention_path(D) reports the choice.
 //
 // Numerics (both loops): scores, running max/sum and accumulation are f32; P
 // is rounded to bf16 for the PV product, before its normalisation.
@@ -267,17 +291,31 @@ cudaError_t launch_attention_mma_dp(const __nv_bfloat16* q, const __nv_bfloat16*
   return cudaGetLastError();
 }
 
-// ---- the wgmma loop: head dim 64 ----
+// ---- the wgmma loop: head dims 64 and 72 ----
 
 constexpr int kTmaRows = 64;       // rows of a consumer warpgroup, keys of a K/V tile
 constexpr int kTmaConsumers = 2;   // consumer warpgroups: 128 query rows per CTA
 constexpr int kTmaStages = 3;      // K/V ring depth
 constexpr int kTmaThreads = kTmaConsumers * 128 + 32;  // + one producer warp
-constexpr int kTmaTile = kTmaRows * 64;                // elements of one 64 x 64 tile (8 KB)
+constexpr int kTmaTile = kTmaRows * 64;                // elements of one 64 x 64 box (8 KB)
 constexpr int kTmaTileBytes = kTmaTile * 2;
-constexpr int kTmaSmem = (kTmaConsumers + 2 * kTmaStages) * kTmaTileBytes + 1024 + 128;
+constexpr int kRemSlot = kRemSlotBytes / 2;            // elements of a remainder slot
 
-inline bool attention_uses_tma(int D) { return D == 64; }
+// TMA bytes of one tile of a head dim: the 64-column box, plus the
+// remainder box (columns 64-71) at 72.  The CTA's dynamic shared memory: 2
+// Q tiles and 3 stages of K and V tiles (at 72 each with its remainder
+// slot), the 1024-byte alignment slack and the barriers.
+template <int kD>
+__host__ __device__ constexpr int tma_tile_bytes() {
+  return kTmaTileBytes + (kD > 64 ? kRemBoxBytes : 0);
+}
+template <int kD>
+__host__ __device__ constexpr int tma_smem() {
+  return (kTmaConsumers + 2 * kTmaStages) * (kTmaTileBytes + (kD > 64 ? kRemSlotBytes : 0)) +
+         1024 + 128;
+}
+
+inline bool attention_uses_tma(int D) { return D == 64 || D == 72; }
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;                             // JAX's NEG_BIG, natural units
@@ -291,32 +329,54 @@ struct HopArgs {
   int Lk;             // keys; the query count is the kernel's L
 };
 
-// One 64 x 64 tile: kRank 3 is kernel 1's packed (3C, L, B) map, whose
-// columns for head h start at col0 + 64 h; kRank 4 is kernel 4's (D, L, H, B).
-template <int kRank>
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col0, int row, int h, int b) {
+// The loop's tensor maps: q, k and v in 64-column boxes (128-byte swizzle),
+// and at head dim 72 the same in unswizzled 8-column remainder boxes; at head
+// dim 64 the remainder maps are never read.
+struct TmaMaps {
+  CUtensorMap q, k, v, q_rem, k_rem, v_rem;
+};
+
+// One tile of rows row .. row + 63 of head h: kRank 3 is kernel 1's packed
+// (3C, L, B) map, whose columns for head h start at col0 + kD h; kRank 4 is
+// kernel 4's (D, L, H, B).  At kD 72 the remainder box (columns 64-71) lands
+// in `dst_rem` on the same barrier.
+template <int kRank, int kD>
+__device__ __forceinline__ void tma_tile(void* dst, void* dst_rem, const CUtensorMap* map,
+                                         const CUtensorMap* map_rem, uint64_t* bar, int col0,
+                                         int row, int h, int b) {
   if constexpr (kRank == 3) {
-    tma_load_3d(dst, map, bar, col0 + h * 64, row, b);
+    tma_load_3d(dst, map, bar, col0 + h * kD, row, b);
+    if constexpr (kD > 64) tma_load_3d(dst_rem, map_rem, bar, col0 + h * kD + 64, row, b);
   } else {
     tma_load_4d(dst, map, bar, 0, row, h, b);
+    if constexpr (kD > 64) tma_load_4d(dst_rem, map_rem, bar, 64, row, h, b);
   }
 }
 
-template <int kRank, bool kHop>
+template <int kRank, bool kHop, int kD>
 __global__ void __launch_bounds__(kTmaThreads, 2)
     attention_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
-                         const __grid_constant__ CUtensorMap map_v, int3 col0,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_q_rem,
+                         const __grid_constant__ CUtensorMap map_k_rem,
+                         const __grid_constant__ CUtensorMap map_v_rem, int3 col0,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Strides os,
                          int L, int H, float scale_log2, HopArgs hop) {
+  static_assert(kD == 64 || kD == 72, "the wgmma loop takes head dims 64 and 72");
+  constexpr bool kRem = kD > 64;
+  constexpr int kTileBytes = tma_tile_bytes<kD>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  // The 64-column boxes, then the remainder slots.
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
   __nv_bfloat16* sK = sQ + kTmaConsumers * kTmaTile;
   __nv_bfloat16* sV = sK + kTmaStages * kTmaTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kTmaStages * kTmaTile);
+  __nv_bfloat16* sQr = sV + kTmaStages * kTmaTile;
+  __nv_bfloat16* sKr = sQr + kTmaConsumers * kRemSlot;
+  __nv_bfloat16* sVr = sKr + kTmaStages * kRemSlot;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kRem ? sVr + kTmaStages * kRemSlot : sQr);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kTmaStages;
 
@@ -339,20 +399,24 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
     }
     mbar_fence_init();
   }
+  if constexpr (kRem) zero_rem_slots(sQr, kTmaConsumers + 2 * kTmaStages);
   __syncthreads();
 
   if (wg == kTmaConsumers) {  // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(q_full, live * kTmaTileBytes);
+      mbar_expect_tx(q_full, live * kTileBytes);
       for (int w = 0; w < live; ++w) {
-        tma_tile<kRank>(sQ + w * kTmaTile, &map_q, q_full, col0.x, q0 + w * kTmaRows, h, b);
+        tma_tile<kRank, kD>(sQ + w * kTmaTile, sQr + w * kRemSlot, &map_q, &map_q_rem, q_full,
+                            col0.x, q0 + w * kTmaRows, h, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kTmaStages;
         mbar_wait(&empty[s], ((j / kTmaStages) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(&full[s], 2 * kTmaTileBytes);
-        tma_tile<kRank>(sK + s * kTmaTile, &map_k, &full[s], col0.y, j * kTmaRows, h, b);
-        tma_tile<kRank>(sV + s * kTmaTile, &map_v, &full[s], col0.z, j * kTmaRows, h, b);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_tile<kRank, kD>(sK + s * kTmaTile, sKr + s * kRemSlot, &map_k, &map_k_rem,
+                            &full[s], col0.y, j * kTmaRows, h, b);
+        tma_tile<kRank, kD>(sV + s * kTmaTile, sVr + s * kRemSlot, &map_v, &map_v_rem,
+                            &full[s], col0.z, j * kTmaRows, h, b);
       }
     }
     return;
@@ -363,6 +427,7 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
   const int gid = lane >> 2;  // accumulator row group
   const int tig = lane & 3;   // thread in group
   float o[32];
+  float o_rem[4] = {0.f, 0.f, 0.f, 0.f};  // columns 64-71 at kD 72
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   // Rows gid and gid + 8 of the warp's slice: running max (log2 domain) and
@@ -372,14 +437,18 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
 
   const int nv = kHop ? min(max(hop.nvalid[b], 0), Lk) : Lk;
   const uint64_t desc_q = sw128_desc(smem_u32(sQ + wg * kTmaTile), 16, 1024);
+  const uint64_t desc_q_rem = rem_desc_k(smem_u32(sQr + wg * kRemSlot));
   mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kTmaStages;
     const uint64_t desc_k = sw128_desc(smem_u32(sK + s * kTmaTile), 16, 1024);
     const uint64_t desc_v = sw128_desc(smem_u32(sV + s * kTmaTile), 16, 1024);
+    const uint64_t desc_k_rem = rem_desc_k(smem_u32(sKr + s * kRemSlot));
+    const uint64_t desc_v_rem = rem_desc_mn(smem_u32(sVr + s * kRemSlot));
     mbar_wait(&full[s], (j / kTmaStages) & 1);
 
-    // S = Q K^T over D = 64: four k16 steps, 32 bytes apart in each 128-byte row.
+    // S = Q K^T over D = 64: four k16 steps, 32 bytes apart in each 128-byte
+    // row; at kD 72 a fifth over the remainder slots (columns 64-71, zeros).
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -387,6 +456,7 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+    if constexpr (kRem) wgmma_m64n64k16_ss(sc, desc_q_rem, desc_k_rem);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(sc);
@@ -427,6 +497,10 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
     l_run[1] = l_run[1] * corr[1] + rs[1];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    if constexpr (kRem) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_rem[i] *= corr[i >> 1];
+    }
 
     // O += P V: the accumulator of keys 16 kk .. 16 kk + 15 (registers
     // 8 kk .. 8 kk + 7) is exactly the register A fragment of k step kk.
@@ -437,15 +511,24 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
       for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
     }
     reg_fence(o);
+    if constexpr (kRem) reg_fence(o_rem);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       // 16 keys = 16 rows of 128 bytes further into the V tile
       wgmma_m64n64k16_rs_tnsp_b(o, pa[kk], desc_v + ((kk * 16 * 128) >> 4));
     }
+    if constexpr (kRem) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // columns 64-71: 16 rows of 16 bytes further into the remainder box
+        wgmma_m64n8k16_rs_tnsp_b(o_rem, pa[kk], desc_v_rem + ((kk * 16 * 16) >> 4));
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
+    if constexpr (kRem) reg_fence(o_rem);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
@@ -487,6 +570,17 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
           pack_bf16(o[4 * dt + 2] * inv[1], o[4 * dt + 3] * inv[1]);
     }
   }
+  if constexpr (kRem) {  // columns 64-71
+    const int col = 64 + tig * 2;
+    if (row0 < L) {
+      *reinterpret_cast<uint32_t*>(obase + row0 * os.l + col) =
+          pack_bf16(o_rem[0] * inv[0], o_rem[1] * inv[0]);
+    }
+    if (row1 < L) {
+      *reinterpret_cast<uint32_t*>(obase + row1 * os.l + col) =
+          pack_bf16(o_rem[2] * inv[1], o_rem[3] * inv[1]);
+    }
+  }
 }
 
 // ---- launches (on `stream`, no synchronisation; CUDA error code, 0 on success) ----
@@ -499,22 +593,22 @@ inline cudaError_t check_attention_args(int B, int H, int L, int D, int device) 
   return cudaSetDevice(device);
 }
 
-// The wgmma loop over three 64 x 64-box maps (kRank 3: col0 holds the
-// column offsets of q, k and v in the packed map); L query rows.  kHop: the
-// hop mode, `hop` its mask, key count and outputs (lse unused).
-template <int kRank, bool kHop = false>
-int launch_attention_tma(const CUtensorMap& map_q, const CUtensorMap& map_k,
-                         const CUtensorMap& map_v, int3 col0, void* out, float* lse, Strides os,
+// The wgmma loop over `maps` (kRank 3: col0 holds the column offsets of q, k
+// and v in the packed map) at head dim kD; L query rows.  kHop: the hop mode,
+// `hop` its mask, key count and outputs (lse unused).
+template <int kRank, bool kHop = false, int kD = 64>
+int launch_attention_tma(const TmaMaps& maps, int3 col0, void* out, float* lse, Strides os,
                          int B, int H, int L, float scale, void* stream, HopArgs hop = {}) {
-  cudaError_t err = cudaFuncSetAttribute(attention_tma_kernel<kRank, kHop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem);
+  constexpr int smem = tma_smem<kD>();
+  cudaError_t err = cudaFuncSetAttribute(attention_tma_kernel<kRank, kHop, kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = kTmaConsumers * kTmaRows;
   const dim3 grid((L + rows - 1) / rows, H, B);
-  attention_tma_kernel<kRank, kHop>
-      <<<grid, kTmaThreads, kTmaSmem, static_cast<cudaStream_t>(stream)>>>(
-          map_q, map_k, map_v, col0, static_cast<__nv_bfloat16*>(out), lse, os, L, H,
-          scale * 1.4426950408889634f, hop);
+  attention_tma_kernel<kRank, kHop, kD>
+      <<<grid, kTmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          maps.q, maps.k, maps.v, maps.q_rem, maps.k_rem, maps.v_rem, col0,
+          static_cast<__nv_bfloat16*>(out), lse, os, L, H, scale * 1.4426950408889634f, hop);
   return (int)cudaGetLastError();
 }
 
@@ -546,8 +640,11 @@ inline int launch_attention_mma(const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// 1 if head dim D takes the wgmma + TMA loop, 0 if the mma.sync loop; the
-// wgmma loop's dynamic shared memory per CTA in bytes.  Exported by both
-// sources that include this header.
+// 1 if head dim D takes the wgmma + TMA loop in kernels 1 and 4, 0 if the
+// mma.sync loop; the wgmma loop's dynamic shared memory per CTA in bytes at
+// head dim D (0 if D does not take it).  Exported by every source that
+// includes this header.
 extern "C" int pdm_attention_path(int D) { return attention_uses_tma(D) ? 1 : 0; }
-extern "C" int pdm_attention_tma_smem_bytes() { return kTmaSmem; }
+extern "C" int pdm_attention_tma_smem_bytes(int D) {
+  return D == 64 ? tma_smem<64>() : D == 72 ? tma_smem<72>() : 0;
+}

@@ -21,11 +21,14 @@
 // function's switch to XLA past MAX_FULL_SEQ = 1024 is not needed.
 //
 // Layout at this entry:
-//   - head dim 64 (the wgmma loop): one TMA tensor map per input, 4-D
-//     (D, L, H, B) with the view's own byte strides (row, head, batch) and
-//     64 x 64 x 1 x 1 boxes in the 128-byte swizzle, so rows past L zero-fill
-//     per (batch, head); TMA needs the base and every stride 16-byte aligned
-//     and unit stride along D, which the wrapper checks (tensor_map.py).
+//   - head dims 64 and 72 (the wgmma loop): one TMA tensor map per input,
+//     4-D (D, L, H, B) with the view's own byte strides (row, head, batch)
+//     and 64 x 64 x 1 x 1 boxes in the 128-byte swizzle, so rows past L
+//     zero-fill per (batch, head); at head dim 72 a second map per input of
+//     unswizzled 8 x 64 x 1 x 1 boxes at column 64; TMA needs the base and
+//     every stride 16-byte
+//     aligned and unit stride along D, which the wrapper checks
+//     (tensor_map.py).
 //   - other head dims (the mma.sync loop): q, k and v as (batch, head, row)
 //     strides in elements.
 //   - out (B, H, L, D) contiguous, as strides (H*L*D, L*D, D) in both.
@@ -44,13 +47,21 @@
 
 namespace {
 
-// The (D, L, H, B) map of one input with (batch, head, row) strides in elements.
-cudaError_t encode_bhld(CUtensorMap* map, const void* t, long long sb, long long sh,
-                        long long sl, int B, int H, int L, int D) {
+// The (D, L, H, B) maps of one input with (batch, head, row) strides in
+// elements: 64 x 64 boxes in the 128-byte swizzle and, at head dim 72, 8 x
+// 64 unswizzled remainder boxes at column 64.
+cudaError_t encode_bhld(CUtensorMap* map, CUtensorMap* map_rem, const void* t, long long sb,
+                        long long sh, long long sl, int B, int H, int L, int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 64, 1, 1};
-  return encode_bf16_map(map, 4, t, dims, strides, box);
+  cudaError_t err = encode_bf16_map(map, 4, t, dims, strides, box);
+  *map_rem = *map;
+  if (err == cudaSuccess && D > 64) {
+    const cuuint32_t box_rem[4] = {8, 64, 1, 1};
+    err = encode_bf16_map(map_rem, 4, t, dims, strides, box_rem, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  return err;
 }
 
 }  // namespace
@@ -68,14 +79,17 @@ extern "C" int pdm_fused_attention(const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   const Strides os{(long)H * L * D, (long)L * D, D};  // out is contiguous (B, H, L, D)
   if (attention_uses_tma(D)) {
-    CUtensorMap mq, mk, mv;
-    if ((err = encode_bhld(&mq, q, q_sb, q_sh, q_sl, B, H, L, D)) != cudaSuccess ||
-        (err = encode_bhld(&mk, k, k_sb, k_sh, k_sl, B, H, L, D)) != cudaSuccess ||
-        (err = encode_bhld(&mv, v, v_sb, v_sh, v_sl, B, H, L, D)) != cudaSuccess) {
+    TmaMaps m;
+    if ((err = encode_bhld(&m.q, &m.q_rem, q, q_sb, q_sh, q_sl, B, H, L, D)) != cudaSuccess ||
+        (err = encode_bhld(&m.k, &m.k_rem, k, k_sb, k_sh, k_sl, B, H, L, D)) != cudaSuccess ||
+        (err = encode_bhld(&m.v, &m.v_rem, v, v_sb, v_sh, v_sl, B, H, L, D)) != cudaSuccess) {
       return (int)err;
     }
-    return launch_attention_tma<4>(mq, mk, mv, make_int3(0, 0, 0), out, nullptr, os, B, H, L,
-                                   scale, stream);
+    const int3 col0 = make_int3(0, 0, 0);
+    return D == 64 ? launch_attention_tma<4, false, 64>(m, col0, out, nullptr, os, B, H, L, scale,
+                                                        stream)
+                   : launch_attention_tma<4, false, 72>(m, col0, out, nullptr, os, B, H, L, scale,
+                                                        stream);
   }
   const Strides qs{(long)q_sb, (long)q_sh, (long)q_sl};
   const Strides ks{(long)k_sb, (long)k_sh, (long)k_sl};

@@ -22,12 +22,15 @@
 //
 // The loop is attention_fwd.cuh's, shared with the (B, H, L, D) kernel of
 // fused_attention.cu; see it for the design.  Layout at this entry:
-//   - head dim 64 (the wgmma loop): one TMA tensor map over the packed qkv,
-//     3-D (3C, L, B) with byte strides (3C * 2, L * 3C * 2) and 64 x 64 boxes
-//     in the 128-byte swizzle, so rows past L zero-fill per batch and are
-//     never read from the next batch; q, k and v of head h are the boxes at
-//     columns h*D, C + h*D and 2C + h*D.  The map is encoded on the host at
-//     every call (pdm_fused_qkv_attention_encode_us times it).
+//   - head dims 64 and 72 (the wgmma loop): one TMA tensor map over the
+//     packed qkv, 3-D (3C, L, B) with byte strides (3C * 2, L * 3C * 2) and
+//     64 x 64 boxes in the 128-byte swizzle, so rows past L zero-fill per
+//     batch and are never read from the next batch; q, k and v of head h are
+//     the boxes at columns h*D, C + h*D and 2C + h*D.  At head dim 72 a
+//     second map of unswizzled 8 x 64 boxes reads columns 64-71 of each
+//     head from h*D + 64, so no column of another head is read.  The maps
+//     are encoded on the host at every call
+//     (pdm_fused_qkv_attention_encode_us times it).
 //   - other head dims (the mma.sync loop): q, k and v as (batch, head, row)
 //     strides (L*3C, D, 3C) from the same base offset by 0, C and 2C.
 //   - out (B, L, C) as strides (L*C, D, C) in both.
@@ -48,10 +51,19 @@
 
 namespace {
 
-// The packed-qkv map of the wgmma loop (see the note above).
-cudaError_t encode_packed_qkv(CUtensorMap* map, const void* qkv, int B, int L, int H, int D) {
+// The packed-qkv maps of the wgmma loop (see the note above): 64-column
+// boxes, and at head dim 72 the 8-column remainder boxes; q, k and v share
+// each map.
+cudaError_t encode_packed_qkv(TmaMaps* maps, const void* qkv, int B, int L, int H, int D) {
   const int c3 = 3 * H * D;
-  return encode_rows_map(map, qkv, (long long)L * c3, c3, c3, L, B);
+  cudaError_t err = encode_rows_map(&maps->q, qkv, (long long)L * c3, c3, c3, L, B);
+  if (err == cudaSuccess) {
+    maps->q_rem = maps->q;
+    if (D > 64) err = encode_rows_map(&maps->q_rem, qkv, (long long)L * c3, c3, c3, L, B, 8);
+  }
+  maps->k = maps->v = maps->q;
+  maps->k_rem = maps->v_rem = maps->q_rem;
+  return err;
 }
 
 }  // namespace
@@ -66,11 +78,14 @@ extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, float* lse, i
   const long C = (long)H * D;
   const Strides os{L * C, D, C};
   if (attention_uses_tma(D)) {
-    CUtensorMap map;
-    err = encode_packed_qkv(&map, qkv, B, L, H, D);
+    TmaMaps maps;
+    err = encode_packed_qkv(&maps, qkv, B, L, H, D);
     if (err != cudaSuccess) return (int)err;
-    return launch_attention_tma<3>(map, map, map, make_int3(0, (int)C, (int)(2 * C)), out, lse,
-                                   os, B, H, L, scale, stream);
+    const int3 col0 = make_int3(0, (int)C, (int)(2 * C));
+    return D == 64 ? launch_attention_tma<3, false, 64>(maps, col0, out, lse, os, B, H, L, scale,
+                                                        stream)
+                   : launch_attention_tma<3, false, 72>(maps, col0, out, lse, os, B, H, L, scale,
+                                                        stream);
   }
   const Strides in{L * 3 * C, D, 3 * C};  // q, k and v: one head's columns of the packed rows
   const auto* base = static_cast<const __nv_bfloat16*>(qkv);
@@ -78,15 +93,15 @@ extern "C" int pdm_fused_qkv_attention(const void* qkv, void* out, float* lse, i
                               scale, stream);
 }
 
-// Host microseconds of one encode of the packed-qkv tensor map (the per-call
-// host cost the wgmma path adds), averaged over `iters` encodes; negative if
-// an encode fails.
+// Host microseconds of one encode of the packed-qkv tensor maps (the per-call
+// host cost the wgmma path adds: one map at head dim 64, two at 72),
+// averaged over `iters` encodes; negative if an encode fails.
 extern "C" double pdm_fused_qkv_attention_encode_us(const void* qkv, int B, int L, int H, int D,
                                                     int iters) {
-  CUtensorMap map;
+  TmaMaps maps;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < iters; ++i) {
-    if (encode_packed_qkv(&map, qkv, B, L, H, D) != cudaSuccess) return -1.0;
+    if (encode_packed_qkv(&maps, qkv, B, L, H, D) != cudaSuccess) return -1.0;
   }
   const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
   return dt.count() / iters;

@@ -37,8 +37,8 @@
 //     scores S^T = K Q^T and accumulates dV = P^T dO and dK = dS^T Q.
 // Both are launched back to back on one stream (dq first: it writes delta).
 //
-// Head dim 64 (every path of the port): the wgmma kernels, on the structure
-// of attention_fwd.cuh's forward loop:
+// Head dims 64 and 72 (every path of the port, U-ViT-H among them): the
+// wgmma kernels, on the structure of attention_fwd.cuh's forward loop:
 //   - a CTA owns rows of one (batch, head): 64 a consumer warpgroup, three
 //     warpgroups (192 query rows) in the dq kernel, two (128 keys) in the
 //     dkv kernel; a producer loads the CTA's resident tiles once (Q and dO,
@@ -71,6 +71,26 @@
 //     lse = +inf in the dkv kernel (the scratch's padding), so they add
 //     nothing; rows >= L are not stored; a warpgroup whose rows all lie past
 //     L exits and the `empty` barriers count only the live ones.
+// Head dim 72 takes the forward's two-box tiles (attention_fwd.cuh): columns
+// 0-63 in the 128-byte swizzle and columns 64-71 as an unswizzled 1 KB box
+// in a 2 KB slot whose second kilobyte is zeroed once a CTA:
+//   - the depth-72 products (S = Q K^T and dP = dO V^T in the dq kernel,
+//     S^T = K Q^T and dP^T = V dO^T in the dkv kernel) get a fifth k16 step
+//     on the slots, columns 64-71 then zeros for 72-79, in both operands
+//     (the resident Q and dO, or K and V, and the streamed tiles), so the pad
+//     adds nothing; no column of another head is read (in the packed qkv and
+//     in dout's (C, L, B) map columns 72-79 of a head are the next head's);
+//   - the products with N = 72 (dQ += dS K, dK += dS^T Q, dV += P^T dO) add
+//     four m64n8k16 steps on the streamed tile's remainder box read MN-major
+//     into 4 more accumulators, queued in the same group as the m64n64
+//     steps; only columns < 72 exist, so all are stored;
+//   - shared memory: dq 124 KB, dkv 105 KB (10 KB a tile), one CTA an SM as
+//     at 64; registers: dq 128 (126 at 64), dkv 168 under setmaxnreg's 232,
+//     no spills.  A 16-column box in the 32-byte swizzle with m64n16 steps
+//     left the dq kernel at 124 registers with 80 bytes of spills and a
+//     serialized wgmma pipeline (C7512).
+// Two calls stay bit-identical: no atomics, and each thread sums its rows of
+// delta in a fixed order.
 // Every other head dim keeps the first design, the mma.sync kernels below:
 // 64-row CTAs of 4 warps of mma.sync m16n8k16, single-buffered tiles loaded
 // through registers, transposed B fragments gathered with scalar loads, D
@@ -390,12 +410,13 @@ cudaError_t launch(const void* qkv, const void* out, const void* dout, const flo
   return cudaGetLastError();
 }
 
-// ---- the wgmma kernels: head dim 64 ----
+// ---- the wgmma kernels: head dims 64 and 72 ----
 
 constexpr int kRows = 64;       // rows of a consumer warpgroup and of a streamed tile
 constexpr int kStages = 3;      // ring depth
-constexpr int kTile = kRows * 64;  // elements of one 64 x 64 tile (8 KB)
+constexpr int kTile = kRows * 64;  // elements of one 64 x 64 box (8 KB)
 constexpr int kTileBytes = kTile * 2;
+constexpr int kRemSlot = kRemSlotBytes / 2;  // elements of a remainder slot (hopper.cuh)
 // Consumer warpgroups a CTA: 64 rows each.
 constexpr int kDqConsumers = 3;
 constexpr int kDkvConsumers = 2;
@@ -403,49 +424,94 @@ constexpr int kDqThreads = kDqConsumers * 128 + 32;     // + one producer warp
 constexpr int kDkvThreads = (kDkvConsumers + 1) * 128;  // + a producer warpgroup
 constexpr int kDkvProducerRegs = 40;
 constexpr int kDkvConsumerRegs = 232;
-// resident: a tile of each of two tensors a consumer; ring: 2 tiles a stage
-// (+ the dkv kernel's 64 lse and 64 delta a stage); barriers
-constexpr int kDqSmem = (2 * kDqConsumers + 2 * kStages) * kTileBytes + 1024 + 128;
-constexpr int kDkvSmem =
-    (2 * kDkvConsumers + 2 * kStages) * kTileBytes + kStages * 2 * kRows * 4 + 1024 + 128;
 
-inline bool attention_bwd_uses_tma(int D) { return D == 64; }
+// TMA bytes of one tile of a head dim: the 64-column box, plus the remainder
+// box (columns 64-71) at 72.  A CTA's dynamic shared memory: resident, a tile
+// of each of two tensors a consumer; ring, 2 tiles a stage (at 72 each tile
+// with its remainder slot; + the dkv kernel's 64 lse and 64 delta a stage);
+// the 1024-byte alignment slack and the barriers.
+template <int kD>
+__host__ __device__ constexpr int tile_bytes() {
+  return kTileBytes + (kD > 64 ? kRemBoxBytes : 0);
+}
+template <int kD>
+__host__ __device__ constexpr int slot_bytes() {
+  return kTileBytes + (kD > 64 ? kRemSlotBytes : 0);
+}
+template <int kD>
+__host__ __device__ constexpr int dq_smem() {
+  return (2 * kDqConsumers + 2 * kStages) * slot_bytes<kD>() + 1024 + 128;
+}
+template <int kD>
+__host__ __device__ constexpr int dkv_smem() {
+  return (2 * kDkvConsumers + 2 * kStages) * slot_bytes<kD>() + kStages * 2 * kRows * 4 + 1024 +
+         128;
+}
+
+inline bool attention_bwd_uses_tma(int D) { return D == 64 || D == 72; }
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* smem_raw) {
   const uint32_t raw = smem_u32(smem_raw);
   return smem_raw + (((raw + 1023u) & ~1023u) - raw);
 }
 
-// acc = A B^T for 64 x 64 tiles, both K-major over the head dim (four k16
-// steps, 32 bytes apart in each 128-byte row), queued as one group; the
+// Rows row .. row + 63 of the columns of one head from `col`: the 64-column
+// box, and at kD 72 the remainder box (columns col + 64 .. col + 71) into
+// `dst_rem`, on the same barrier.
+template <int kD>
+__device__ __forceinline__ void tma_head_tile(void* dst, void* dst_rem, const CUtensorMap* map,
+                                              const CUtensorMap* map_rem, uint64_t* bar, int col,
+                                              int row, int b) {
+  tma_load_3d(dst, map, bar, col, row, b);
+  if constexpr (kD > 64) tma_load_3d(dst_rem, map_rem, bar, col + 64, row, b);
+}
+
+// acc = A B^T for 64-row tiles, both K-major over the head dim (four k16
+// steps, 32 bytes apart in each 128-byte row; at kD 72 a fifth over the
+// remainder slots: columns 64-71, then zeros), queued as one group; the
 // first step overwrites acc (scale-d 0).
-__device__ __forceinline__ void mma_abt_tiles(float (&acc)[32], uint64_t desc_a,
-                                              uint64_t desc_b) {
+template <bool kRem>
+__device__ __forceinline__ void mma_abt_tiles(float (&acc)[32], uint64_t desc_a, uint64_t desc_b,
+                                              uint64_t desc_a_rem, uint64_t desc_b_rem) {
   wgmma_fence();
   wgmma_m64n64k16_ss(acc, desc_a, desc_b, 0);
 #pragma unroll
   for (int kk = 1; kk < 4; ++kk) wgmma_m64n64k16_ss(acc, desc_a + 2 * kk, desc_b + 2 * kk);
+  if constexpr (kRem) wgmma_m64n64k16_ss(acc, desc_a_rem, desc_b_rem);
   wgmma_commit();
 }
 
 // acc += X T for X the bf16 A fragments of a 64 x 64 product (fragment kk:
-// columns 16 kk .. 16 kk + 15) and T a 64 x 64 tile read MN-major (16 rows
-// of 128 bytes a k step), queued as one group.
-__device__ __forceinline__ void mma_xt_tile(float (&acc)[32], const uint32_t (&x)[4][4],
-                                            uint64_t desc_t) {
+// columns 16 kk .. 16 kk + 15) and T a 64-row tile read MN-major (16 rows of
+// 128 bytes a k step); at kD 72 also acc_rem += X T_rem over the remainder
+// box (columns 64-71, 16 rows of 16 bytes a k step); queued as one group.
+template <bool kRem>
+__device__ __forceinline__ void mma_xt_tile(float (&acc)[32], float (&acc_rem)[4],
+                                            const uint32_t (&x)[4][4], uint64_t desc_t,
+                                            uint64_t desc_t_rem) {
   reg_fence(acc);
+  if constexpr (kRem) reg_fence(acc_rem);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     wgmma_m64n64k16_rs_tnsp_b(acc, x[kk], desc_t + ((kk * 16 * 128) >> 4));
   }
+  if constexpr (kRem) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n8k16_rs_tnsp_b(acc_rem, x[kk], desc_t_rem + ((kk * 16 * 16) >> 4));
+    }
+  }
   wgmma_commit();
 }
 
-// Rows row0 and row0 + 8 of a 64-wide accumulator into the packed (B, L, 3C)
-// dqkv at `dst` (batch row 0, this head's column 0); rows >= L not stored.
+// Rows row0 and row0 + 8 of an accumulator (columns 0-63, and at kD 72
+// columns 64-71 from acc_rem) into the packed (B, L, 3C) dqkv at `dst`
+// (batch row 0, this head's column 0); rows >= L not stored.
+template <bool kRem>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst, long row_stride,
-                                          const float (&acc)[32], int row0, int L, int tig) {
+                                          const float (&acc)[32], const float (&acc_rem)[4],
+                                          int row0, int L, int tig) {
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = dt * 8 + tig * 2;
@@ -458,27 +524,48 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* dst, long row_stride,
           pack_bf16(acc[4 * dt + 2], acc[4 * dt + 3]);
     }
   }
+  if constexpr (kRem) {
+    const int col = 64 + tig * 2;
+    if (row0 < L) {
+      *reinterpret_cast<uint32_t*>(dst + row0 * row_stride + col) =
+          pack_bf16(acc_rem[0], acc_rem[1]);
+    }
+    if (row0 + 8 < L) {
+      *reinterpret_cast<uint32_t*>(dst + (row0 + 8) * row_stride + col) =
+          pack_bf16(acc_rem[2], acc_rem[3]);
+    }
+  }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kDqThreads, 1)
     dq_tma_kernel(const __grid_constant__ CUtensorMap map_qkv,
-                  const __grid_constant__ CUtensorMap map_do, const __nv_bfloat16* __restrict__ out,
-                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                  float* __restrict__ rows, __nv_bfloat16* __restrict__ dqkv, int L, int H,
-                  float scale) {
+                  const __grid_constant__ CUtensorMap map_do,
+                  const __grid_constant__ CUtensorMap map_qkv_rem,
+                  const __grid_constant__ CUtensorMap map_do_rem,
+                  const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ rows,
+                  __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale) {
+  static_assert(kD == 64 || kD == 72, "the wgmma kernels take head dims 64 and 72");
+  constexpr bool kRem = kD > 64;
   extern __shared__ unsigned char smem_raw[];
+  // The 64-column boxes, then the remainder slots.
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(align_1024(smem_raw));
   __nv_bfloat16* sDO = sQ + kDqConsumers * kTile;
   __nv_bfloat16* sK = sDO + kDqConsumers * kTile;
   __nv_bfloat16* sV = sK + kStages * kTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  __nv_bfloat16* sQr = sV + kStages * kTile;
+  __nv_bfloat16* sDOr = sQr + kDqConsumers * kRemSlot;
+  __nv_bfloat16* sKr = sDOr + kDqConsumers * kRemSlot;
+  __nv_bfloat16* sVr = sKr + kStages * kRemSlot;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kRem ? sVr + kStages * kRemSlot : sQr);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
   const int q0 = blockIdx.x * (kDqConsumers * kRows);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int C = H * 64;
+  const int C = H * kD;
   const int live = min(kDqConsumers, (L - q0 + kRows - 1) / kRows);
   const int n_tiles = (L + kRows - 1) / kRows;
   const int warp = threadIdx.x >> 5;
@@ -494,21 +581,26 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     }
     mbar_fence_init();
   }
+  if constexpr (kRem) zero_rem_slots(sQr, 2 * kDqConsumers + 2 * kStages);
   __syncthreads();
 
   if (wg == kDqConsumers) {  // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(q_full, 2 * live * kTileBytes);
+      mbar_expect_tx(q_full, 2 * live * tile_bytes<kD>());
       for (int w = 0; w < live; ++w) {
-        tma_load_3d(sQ + w * kTile, &map_qkv, q_full, h * 64, q0 + w * kRows, b);
-        tma_load_3d(sDO + w * kTile, &map_do, q_full, h * 64, q0 + w * kRows, b);
+        tma_head_tile<kD>(sQ + w * kTile, sQr + w * kRemSlot, &map_qkv, &map_qkv_rem, q_full,
+                          h * kD, q0 + w * kRows, b);
+        tma_head_tile<kD>(sDO + w * kTile, sDOr + w * kRemSlot, &map_do, &map_do_rem, q_full,
+                          h * kD, q0 + w * kRows, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load_3d(sK + s * kTile, &map_qkv, &full[s], C + h * 64, j * kRows, b);
-        tma_load_3d(sV + s * kTile, &map_qkv, &full[s], 2 * C + h * 64, j * kRows, b);
+        mbar_expect_tx(&full[s], 2 * tile_bytes<kD>());
+        tma_head_tile<kD>(sK + s * kTile, sKr + s * kRemSlot, &map_qkv, &map_qkv_rem, &full[s],
+                          C + h * kD, j * kRows, b);
+        tma_head_tile<kD>(sV + s * kTile, sVr + s * kRemSlot, &map_qkv, &map_qkv_rem, &full[s],
+                          2 * C + h * kD, j * kRows, b);
       }
     }
     return;
@@ -522,29 +614,33 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const long bh = (long)b * H + h;
   const long lpad = (long)n_tiles * kRows;
 
-  // delta of rows row0 and row0 + 8: the four threads of a row group sum 16
-  // columns each; then both rows' lse (log2 units) and delta go to the
-  // scratch for the dkv kernel (rows of a live warpgroup are < lpad).
+  // delta of rows row0 and row0 + 8: the four threads of a row group sum
+  // the row's 16-byte chunks tig, tig + 4, ...; then both rows' lse (log2
+  // units) and delta go to the scratch for the dkv kernel (rows of a live
+  // warpgroup are < lpad).
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     float acc = 0.f;
     if (row < L) {
-      const long off = ((long)b * L + row) * C + h * 64 + tig * 16;
+      const long off = ((long)b * L + row) * C + h * kD;
       const uint4* op = reinterpret_cast<const uint4*>(out + off);
       const uint4* gp = reinterpret_cast<const uint4*>(dout + off);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint4 ov = __ldg(op + c);
-        const uint4 gv = __ldg(gp + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      for (int i = 0; i < (kD / 8 + 3) / 4; ++i) {
+        const int c = tig + 4 * i;
+        if (c < kD / 8) {
+          const uint4 ov = __ldg(op + c);
+          const uint4 gv = __ldg(gp + c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 of = __bfloat1622float2(o2[i]);
-          const float2 gf = __bfloat1622float2(g2[i]);
-          acc += of.x * gf.x + of.y * gf.y;
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            acc += of.x * gf.x + of.y * gf.y;
+          }
         }
       }
     }
@@ -559,20 +655,25 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   }
   const float scale_log2 = scale * kLog2e;
 
-  float dq[32];
+  float dq[32], dq_rem[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
   const uint64_t desc_q = sw128_desc(smem_u32(sQ + wg * kTile), 16, 1024);
   const uint64_t desc_do = sw128_desc(smem_u32(sDO + wg * kTile), 16, 1024);
+  const uint64_t desc_q_rem = rem_desc_k(smem_u32(sQr + wg * kRemSlot));
+  const uint64_t desc_do_rem = rem_desc_k(smem_u32(sDOr + wg * kRemSlot));
   mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     const uint64_t desc_k = sw128_desc(smem_u32(sK + s * kTile), 16, 1024);
     const uint64_t desc_v = sw128_desc(smem_u32(sV + s * kTile), 16, 1024);
+    const uint32_t k_rem = smem_u32(sKr + s * kRemSlot);
+    const uint64_t desc_k_rem = rem_desc_k(k_rem);
+    const uint64_t desc_v_rem = rem_desc_k(smem_u32(sVr + s * kRemSlot));
     mbar_wait(&full[s], (j / kStages) & 1);
     float sc[32], dp[32];
-    mma_abt_tiles(sc, desc_q, desc_k);   // S = Q K^T
-    mma_abt_tiles(dp, desc_do, desc_v);  // dP = dO V^T, queued behind S
+    mma_abt_tiles<kRem>(sc, desc_q, desc_k, desc_q_rem, desc_k_rem);     // S = Q K^T
+    mma_abt_tiles<kRem>(dp, desc_do, desc_v, desc_do_rem, desc_v_rem);  // dP = dO V^T, queued
     wgmma_wait<1>();
     reg_fence(sc);
     // P from the forward's lse; keys >= L (zero-filled K rows) give 0.
@@ -596,26 +697,39 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                               sc[i + 1] * (dp[i + 1] - dl[e & 1]) * scale);
       }
     }
-    mma_xt_tile(dq, ds, desc_k);  // dQ += dS K
+    mma_xt_tile<kRem>(dq, dq_rem, ds, desc_k, rem_desc_mn(k_rem));  // dQ += dS K
     wgmma_wait<0>();
     reg_fence(dq);
+    if constexpr (kRem) reg_fence(dq_rem);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
   const long row_stride = 3L * C;
-  store_acc(dqkv + (long)b * L * row_stride + h * 64, row_stride, dq, row0, L, tig);
+  store_acc<kRem>(dqkv + (long)b * L * row_stride + h * kD, row_stride, dq, dq_rem, row0, L,
+                  tig);
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     dkv_tma_kernel(const __grid_constant__ CUtensorMap map_qkv,
-                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ rows,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const __grid_constant__ CUtensorMap map_qkv_rem,
+                   const __grid_constant__ CUtensorMap map_do_rem, const float* __restrict__ rows,
                    __nv_bfloat16* __restrict__ dqkv, int L, int H, float scale) {
+  static_assert(kD == 64 || kD == 72, "the wgmma kernels take head dims 64 and 72");
+  constexpr bool kRem = kD > 64;
   extern __shared__ unsigned char smem_raw[];
+  // The 64-column boxes, the remainder slots, then the lse / delta stages.
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(align_1024(smem_raw));
   __nv_bfloat16* sV = sK + kDkvConsumers * kTile;
   __nv_bfloat16* sQ = sV + kDkvConsumers * kTile;
   __nv_bfloat16* sDO = sQ + kStages * kTile;
-  float* sRow = reinterpret_cast<float*>(sDO + kStages * kTile);  // a stage: 64 lse, 64 delta
+  __nv_bfloat16* sKr = sDO + kStages * kTile;
+  __nv_bfloat16* sVr = sKr + kDkvConsumers * kRemSlot;
+  __nv_bfloat16* sQr = sVr + kDkvConsumers * kRemSlot;
+  __nv_bfloat16* sDOr = sQr + kStages * kRemSlot;
+  // a stage: 64 lse, 64 delta
+  float* sRow = reinterpret_cast<float*>(kRem ? sDOr + kStages * kRemSlot : sKr);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRow + kStages * 2 * kRows);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
@@ -623,7 +737,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int k0 = blockIdx.x * (kDkvConsumers * kRows);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int C = H * 64;
+  const int C = H * kD;
   const int live = min(kDkvConsumers, (L - k0 + kRows - 1) / kRows);
   const int n_tiles = (L + kRows - 1) / kRows;
   const long bh = (long)b * H + h;
@@ -641,22 +755,27 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     }
     mbar_fence_init();
   }
+  if constexpr (kRem) zero_rem_slots(sKr, 2 * kDkvConsumers + 2 * kStages);
   __syncthreads();
 
   if (wg == kDkvConsumers) {  // the producer warpgroup: one thread issues every load
     setmaxnreg_dec<kDkvProducerRegs>();
     if (warp == 4 * kDkvConsumers && lane == 0) {
-      mbar_expect_tx(kv_full, 2 * live * kTileBytes);
+      mbar_expect_tx(kv_full, 2 * live * tile_bytes<kD>());
       for (int w = 0; w < live; ++w) {
-        tma_load_3d(sK + w * kTile, &map_qkv, kv_full, C + h * 64, k0 + w * kRows, b);
-        tma_load_3d(sV + w * kTile, &map_qkv, kv_full, 2 * C + h * 64, k0 + w * kRows, b);
+        tma_head_tile<kD>(sK + w * kTile, sKr + w * kRemSlot, &map_qkv, &map_qkv_rem, kv_full,
+                          C + h * kD, k0 + w * kRows, b);
+        tma_head_tile<kD>(sV + w * kTile, sVr + w * kRemSlot, &map_qkv, &map_qkv_rem, kv_full,
+                          2 * C + h * kD, k0 + w * kRows, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kRows * 4);
-        tma_load_3d(sQ + s * kTile, &map_qkv, &full[s], h * 64, j * kRows, b);
-        tma_load_3d(sDO + s * kTile, &map_do, &full[s], h * 64, j * kRows, b);
+        mbar_expect_tx(&full[s], 2 * tile_bytes<kD>() + 2 * kRows * 4);
+        tma_head_tile<kD>(sQ + s * kTile, sQr + s * kRemSlot, &map_qkv, &map_qkv_rem, &full[s],
+                          h * kD, j * kRows, b);
+        tma_head_tile<kD>(sDO + s * kTile, sDOr + s * kRemSlot, &map_do, &map_do_rem, &full[s],
+                          h * kD, j * kRows, b);
         bulk_load(sRow + s * 2 * kRows, rows + bh * 2 * lpad + j * kRows, kRows * 4, &full[s]);
         bulk_load(sRow + s * 2 * kRows + kRows, rows + (bh * 2 + 1) * lpad + j * kRows, kRows * 4,
                   &full[s]);
@@ -671,24 +790,30 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const float scale_log2 = scale * kLog2e;
-  float dk[32], dv[32];
+  float dk[32], dv[32], dk_rem[4] = {0.f, 0.f, 0.f, 0.f}, dv_rem[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
   const uint64_t desc_k = sw128_desc(smem_u32(sK + wg * kTile), 16, 1024);
   const uint64_t desc_v = sw128_desc(smem_u32(sV + wg * kTile), 16, 1024);
+  const uint64_t desc_k_rem = rem_desc_k(smem_u32(sKr + wg * kRemSlot));
+  const uint64_t desc_v_rem = rem_desc_k(smem_u32(sVr + wg * kRemSlot));
   mbar_wait(kv_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     const uint64_t desc_q = sw128_desc(smem_u32(sQ + s * kTile), 16, 1024);
     const uint64_t desc_do = sw128_desc(smem_u32(sDO + s * kTile), 16, 1024);
+    const uint32_t q_rem = smem_u32(sQr + s * kRemSlot);
+    const uint32_t do_rem = smem_u32(sDOr + s * kRemSlot);
+    const uint64_t desc_q_rem = rem_desc_k(q_rem);
+    const uint64_t desc_do_rem = rem_desc_k(do_rem);
     const float* sl = sRow + s * 2 * kRows;  // the tile's lse (log2 units), then delta
     mbar_wait(&full[s], (j / kStages) & 1);
 
     // Transposed scores: rows are this warpgroup's keys, columns the tile's
     // queries; register i is column (i >> 2) * 8 + 2 tig + (i & 1).
     float st[32], dpt[32];
-    mma_abt_tiles(st, desc_k, desc_q);    // S^T = K Q^T
-    mma_abt_tiles(dpt, desc_v, desc_do);  // dP^T = V dO^T, queued behind S^T
+    mma_abt_tiles<kRem>(st, desc_k, desc_q, desc_k_rem, desc_q_rem);     // S^T = K Q^T
+    mma_abt_tiles<kRem>(dpt, desc_v, desc_do, desc_v_rem, desc_do_rem);  // dP^T = V dO^T
     wgmma_wait<1>();
     reg_fence(st);
 #pragma unroll
@@ -705,8 +830,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pt[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
     }
-    mma_xt_tile(dv, pt, desc_do);  // dV += P^T dO, queued behind dP^T
-    wgmma_wait<1>();                // dP^T is done; dV may run on
+    mma_xt_tile<kRem>(dv, dv_rem, pt, desc_do, rem_desc_mn(do_rem));  // dV += P^T dO
+    wgmma_wait<1>();  // dP^T is done; dV, queued behind it, may run on
     reg_fence(dpt);
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -724,45 +849,59 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         dst[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
       }
     }
-    mma_xt_tile(dk, dst, desc_q);  // dK += dS^T Q
+    mma_xt_tile<kRem>(dk, dk_rem, dst, desc_q, rem_desc_mn(q_rem));  // dK += dS^T Q
     wgmma_wait<0>();
     reg_fence(dv);
     reg_fence(dk);
+    if constexpr (kRem) {
+      reg_fence(dv_rem);
+      reg_fence(dk_rem);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
   const long row_stride = 3L * C;
   const int row0 = k0 + wg * kRows + wl * 16 + gid;
-  __nv_bfloat16* dst0 = dqkv + (long)b * L * row_stride + h * 64;
-  store_acc(dst0 + C, row_stride, dk, row0, L, tig);
-  store_acc(dst0 + 2 * C, row_stride, dv, row0, L, tig);
+  __nv_bfloat16* dst0 = dqkv + (long)b * L * row_stride + h * kD;
+  store_acc<kRem>(dst0 + C, row_stride, dk, dk_rem, row0, L, tig);
+  store_acc<kRem>(dst0 + 2 * C, row_stride, dv, dv_rem, row0, L, tig);
 }
 
+template <int kD>
 cudaError_t launch_tma(const void* qkv, const void* out, const void* dout, const float* lse,
                        float* rows, void* dqkv, int B, int L, int H, float scale,
                        cudaStream_t stream) {
-  CUtensorMap map_qkv, map_do;
+  CUtensorMap map_qkv, map_do, map_qkv_rem, map_do_rem;
   cudaError_t err;
-  const int C = H * 64;
+  const int C = H * kD;
   if ((err = encode_rows_map(&map_qkv, qkv, 3LL * L * C, 3 * C, 3 * C, L, B)) != cudaSuccess ||
       (err = encode_rows_map(&map_do, dout, (long long)L * C, C, C, L, B)) != cudaSuccess) {
     return err;
   }
-  if ((err = cudaFuncSetAttribute(dq_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kDqSmem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(dkv_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kDkvSmem)) != cudaSuccess) {
+  map_qkv_rem = map_qkv;  // never read at head dim 64
+  map_do_rem = map_do;
+  if (kD > 64 &&
+      ((err = encode_rows_map(&map_qkv_rem, qkv, 3LL * L * C, 3 * C, 3 * C, L, B, 8)) !=
+           cudaSuccess ||
+       (err = encode_rows_map(&map_do_rem, dout, (long long)L * C, C, C, L, B, 8)) !=
+           cudaSuccess)) {
+    return err;
+  }
+  if ((err = cudaFuncSetAttribute(dq_tma_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  dq_smem<kD>())) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dkv_tma_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  dkv_smem<kD>())) != cudaSuccess) {
     return err;
   }
   const dim3 dq_grid((L + kDqConsumers * kRows - 1) / (kDqConsumers * kRows), H, B);
   const dim3 dkv_grid((L + kDkvConsumers * kRows - 1) / (kDkvConsumers * kRows), H, B);
   auto* dq = static_cast<__nv_bfloat16*>(dqkv);
-  dq_tma_kernel<<<dq_grid, kDqThreads, kDqSmem, stream>>>(
-      map_qkv, map_do, static_cast<const __nv_bfloat16*>(out),
+  dq_tma_kernel<kD><<<dq_grid, kDqThreads, dq_smem<kD>(), stream>>>(
+      map_qkv, map_do, map_qkv_rem, map_do_rem, static_cast<const __nv_bfloat16*>(out),
       static_cast<const __nv_bfloat16*>(dout), lse, rows, dq, L, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkv_tma_kernel<<<dkv_grid, kDkvThreads, kDkvSmem, stream>>>(map_qkv, map_do, rows, dq, L, H,
-                                                              scale);
+  dkv_tma_kernel<kD><<<dkv_grid, kDkvThreads, dkv_smem<kD>(), stream>>>(
+      map_qkv, map_do, map_qkv_rem, map_do_rem, rows, dq, L, H, scale);
   return cudaGetLastError();
 }
 
@@ -783,7 +922,8 @@ extern "C" int pdm_fused_qkv_attention_bwd(const void* qkv, const void* out, con
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (attention_bwd_uses_tma(D)) {
-    return (int)launch_tma(qkv, out, dout, lse, rows, dqkv, B, L, H, scale, s);
+    return (int)(D == 64 ? launch_tma<64>(qkv, out, dout, lse, rows, dqkv, B, L, H, scale, s)
+                         : launch_tma<72>(qkv, out, dout, lse, rows, dqkv, B, L, H, scale, s));
   }
   float* delta = rows;
   switch ((D + 15) / 16) {
@@ -802,5 +942,9 @@ extern "C" int pdm_fused_qkv_attention_bwd(const void* qkv, const void* out, con
 extern "C" int pdm_attention_bwd_path(int D) { return attention_bwd_uses_tma(D) ? 1 : 0; }
 
 // Dynamic shared memory a CTA of the wgmma dq kernel (dkv = 0) or dkv kernel
-// (dkv = 1) takes, in bytes.
-extern "C" int pdm_attention_bwd_tma_smem_bytes(int dkv) { return dkv ? kDkvSmem : kDqSmem; }
+// (dkv = 1) takes at head dim D, in bytes (0 if D does not take them).
+extern "C" int pdm_attention_bwd_tma_smem_bytes(int dkv, int D) {
+  if (D == 64) return dkv ? dkv_smem<64>() : dq_smem<64>();
+  if (D == 72) return dkv ? dkv_smem<72>() : dq_smem<72>();
+  return 0;
+}

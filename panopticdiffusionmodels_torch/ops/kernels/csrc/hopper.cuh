@@ -9,7 +9,8 @@
 // Layout convention: every tile that TMA writes and wgmma reads is a stack of
 // 128-byte rows (64 bf16) in the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B:
 // the 16-byte chunk c of row r sits at chunk c ^ (r % 8)), and starts on a
-// 1024-byte boundary, the period of that swizzle.
+// 1024-byte boundary, the period of that swizzle.  Head dim 72 adds a
+// remainder slot per tile for columns 64-71 (rem_desc_k, rem_desc_mn).
 
 #pragma once
 
@@ -134,6 +135,48 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes
          ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
 }
 
+// Orders this thread's earlier shared-memory stores before later reads by
+// the async proxy (wgmma operands, TMA); follow it with a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Remainder slots (head dim 72): 2 KB each, the TMA box of columns 64-71 (64
+// rows of 16 bytes, 1 KB), then 1 KB of zeros that stands for columns 72-79
+// in the k16 step over columns 64-79, so columns 72-79 are never loaded.
+// The box is unswizzled: each 8 rows are one 128-byte core matrix of wgmma's
+// interleaved layout (layout type 0).
+constexpr int kRemBoxBytes = 1024;
+constexpr int kRemSlotBytes = 2048;
+
+// Descriptor of the slot at shared address `addr` as a K-major operand of a
+// k16 step: 8-row groups 128 bytes apart (sbo), columns 72-79 the slot's
+// zeros 1 KB on (lbo).
+__device__ __forceinline__ uint64_t rem_desc_k(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kRemBoxBytes >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// The slot's box as an MN-major B of 8 columns (transpose bit): 8-k groups
+// 128 bytes apart (lbo); one column block, so sbo is unused (128).
+__device__ __forceinline__ uint64_t rem_desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// Zeroes the second kilobyte of `n` consecutive remainder slots, by all the
+// CTA's threads, then orders the stores before the async proxy; call before
+// the __syncthreads that precedes the first TMA load and wgmma.
+__device__ __forceinline__ void zero_rem_slots(void* slots, int n) {
+  constexpr int kChunks = kRemBoxBytes / 16;  // 16-byte stores a slot
+  unsigned char* p = static_cast<unsigned char*>(slots);
+  for (int i = threadIdx.x; i < n * kChunks; i += blockDim.x) {
+    *reinterpret_cast<uint4*>(p + (i / kChunks) * kRemSlotBytes + kRemBoxBytes +
+                              (i % kChunks) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -200,6 +243,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tnsp_b(float (&d)[32], const 
       "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
       "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A B for a 64x8 tile, k16: A (64 x 16) from registers, B (16 x 8)
+// MN-major in shared memory (transpose bit).
+__device__ __forceinline__ void wgmma_m64n8k16_rs_tnsp_b(float (&d)[4], const uint32_t (&a)[4],
+                                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -281,32 +337,37 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map over `base` with the 128-byte swizzle and zero fill past
-// the edges: dims innermost first (dim 0 of unit stride), strides_bytes for
-// dims 1..rank-1, box the tile in elements per dim (box[0] * 2 <= 128).
+// A bf16 tensor map over `base` with zero fill past the edges: dims innermost
+// first (dim 0 of unit stride), strides_bytes for dims 1..rank-1, box the
+// tile in elements per dim, in the 128-byte swizzle (box[0] * 2 <= 128) or
+// as `swizzle` says.
 inline cudaError_t encode_bf16_map(CUtensorMap* map, int rank, const void* base,
                                    const cuuint64_t* dims, const cuuint64_t* strides_bytes,
-                                   const cuuint32_t* box) {
+                                   const cuuint32_t* box,
+                                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
-         strides_bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         strides_bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The 3-D (width, rows, B) map of a (B, rows, width) bf16 view with element
-// strides (batch bs, row rs, column 1) and 64 x 64 boxes, so that rows past
-// `rows` zero-fill per batch and are never read from the next one.
+// strides (batch bs, row rs, column 1) and boxes of 64 rows, so that rows
+// past `rows` zero-fill per batch and are never read from the next one.
+// Boxes of 64 columns in the 128-byte swizzle, or (box_cols = 8) the
+// unswizzled remainder boxes of 8 columns.
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, long long bs, long long rs,
-                                   int width, int rows, int B) {
+                                   int width, int rows, int B, int box_cols = 64) {
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  return encode_bf16_map(map, 3, base, dims, strides, box);
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, 64, 1};
+  return encode_bf16_map(map, 3, base, dims, strides, box,
+                         box_cols == 8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

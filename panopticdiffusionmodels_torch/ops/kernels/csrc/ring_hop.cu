@@ -45,8 +45,9 @@
 // Every other head dim keeps the first design, the mma.sync kernel below:
 // one CTA per (64-row query tile, head, batch row), 4 warps of mma.sync
 // m16n8k16, single-buffered 64-key K/V tiles loaded through registers, V
-// fragments gathered with scalar shared-memory loads.  pdm_attention_path(D)
-// (attention_fwd.cuh) reports the choice.
+// fragments gathered with scalar shared-memory loads.  The hop has its own
+// predicate, hop_uses_tma (head dim 64 only; kernels 1 and 4 also take the
+// loop at 72), and pdm_ring_hop_path(D) reports it.
 //
 // Numerics: scores and the running statistics are f32, in the log2 domain
 // (s * scale * log2 e, exp2); m is converted back to natural units on the
@@ -63,6 +64,11 @@ namespace {
 // The mma.sync kernel takes attention_fwd.cuh's tile constants (kBlockM
 // query rows of 4 warps, kBlockN-key tiles) and its kLn2 / kNegBig.
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The hop's own choice of loop: the wgmma loop at head dim 64 only.  Kernels
+// 1 and 4 take that loop at 72 too (attention_uses_tma), but no path runs a
+// hop at a head dim other than 64, so the hop keeps the mma.sync kernel there.
+inline bool hop_uses_tma(int D) { return D == 64; }
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -268,16 +274,17 @@ extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int C = H * D;
-  if (attention_uses_tma(D)) {
-    CUtensorMap map_q, map_kv;
-    if ((err = encode_rows_map(&map_q, q, q_bs, q_rs, C, Lq, B)) != cudaSuccess ||
-        (err = encode_rows_map(&map_kv, kv, kv_bs, kv_rs, 2 * C, Lk, B)) != cudaSuccess) {
+  if (hop_uses_tma(D)) {
+    TmaMaps maps;
+    if ((err = encode_rows_map(&maps.q, q, q_bs, q_rs, C, Lq, B)) != cudaSuccess ||
+        (err = encode_rows_map(&maps.k, kv, kv_bs, kv_rs, 2 * C, Lk, B)) != cudaSuccess) {
       return (int)err;
     }
+    maps.v = maps.k;
+    maps.q_rem = maps.q, maps.k_rem = maps.v_rem = maps.k;  // never read at head dim 64
     const Strides os{(long)Lq * C, D, C};  // out is contiguous (B, Lq, C)
-    return launch_attention_tma<3, true>(map_q, map_kv, map_kv, make_int3(0, 0, C), out, nullptr,
-                                         os, B, H, Lq, scale, stream,
-                                         HopArgs{nvalid, m, den, Lk});
+    return launch_attention_tma<3, true>(maps, make_int3(0, 0, C), out, nullptr, os, B, H, Lq,
+                                         scale, stream, HopArgs{nvalid, m, den, Lk});
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PDM_HOP_LAUNCH(DP)                                                                  \
@@ -295,3 +302,7 @@ extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const
   }
 #undef PDM_HOP_LAUNCH
 }
+
+// 1 if head dim D takes the wgmma + TMA loop in the hop, 0 if the mma.sync
+// kernel.
+extern "C" int pdm_ring_hop_path(int D) { return hop_uses_tma(D) ? 1 : 0; }

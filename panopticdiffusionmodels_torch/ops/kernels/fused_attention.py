@@ -3,8 +3,8 @@
 Replaces the Pallas TPU kernel
 `panopticdiffusionmodels_tpu/ops/pallas/fused_attention.py::fused_attention`
 with the hand-written CUDA C++ kernel in `csrc/fused_attention.cu` (sm_90a:
-kernel 1's loop of `csrc/attention_fwd.cuh`, TMA and wgmma for head dim 64,
-mma.sync for the others).  `FusedAttention` is the JAX function's custom
+kernel 1's loop of `csrc/attention_fwd.cuh`, TMA and wgmma for head dims 64
+and 72, mma.sync for the others).  `FusedAttention` is the JAX function's custom
 VJP: the kernel forward, and the JAX package's own f32 recompute of the
 attention gradient (`_fused_attention_bwd`) as the backward, in plain
 PyTorch on both sides, because the TPU kernel has no backward kernel.  That
@@ -14,8 +14,8 @@ What bounds the kernel on an H100: 4*B*H*L^2*D flops against 8*B*H*L*D
 bytes, L/2 flops per byte, far below the card's bf16 ridge at the U-ViT's
 L = 258, so it is bound by the traffic of q, k, v and the output; the
 (L, L) scores never reach device memory (online softmax over 64-key tiles,
-one path for every L; see the source).  For head dim 64 it reads q, k and
-v through one TMA tensor map each (4-D, (D, L, H, B) with the view's
+one path for every L; see the source).  For head dims 64 and 72 it reads
+q, k and v through TMA tensor maps (4-D, (D, L, H, B) with the view's
 strides), so it needs the base and every stride 16-byte aligned
 (`tensor_map.tma_eligible`).  The TPU kernel keeps P in f32 for
 PV; the Hopper kernel rounds the unnormalised P to bf16 for the tensor

@@ -7,9 +7,10 @@ Replaces the Pallas TPU kernels
 CUDA C++ kernels in `csrc/fused_qkv_attention.cu` and
 `csrc/fused_qkv_attention_bwd.cu` (sm_90a).  The forward runs the attention
 loop of `csrc/attention_fwd.cuh`: TMA loads into an mbarrier ring and wgmma
-for head dim 64, mma.sync for every other head dim (`attention_loop`); the
-backward's two kernels take the same structure for head dim 64 (TMA ring,
-mbarriers, wgmma) and mma.sync for the others (`attention_bwd_loop`).
+for head dims 64 and 72, mma.sync for every other head dim
+(`attention_loop`); the backward's two kernels take the same structure for
+head dims 64 and 72 (TMA ring, mbarriers, wgmma) and mma.sync for the others
+(`attention_bwd_loop`).
 
 What bounds them on an H100: the forward does 4*B*L^2*C flops against
 8*B*L*C bytes of qkv read and output written, i.e. L/2 flops per byte, below
@@ -181,24 +182,26 @@ def attention_bwd_loop(d: int) -> str:
     return "wgmma+tma" if fn(d) else "mma.sync"
 
 
-def attention_bwd_tma_smem_bytes() -> dict:
-    """Dynamic shared memory a CTA of each wgmma backward kernel takes (on
-    the card)."""
+def attention_bwd_tma_smem_bytes(d: int) -> dict:
+    """Dynamic shared memory a CTA of each wgmma backward kernel takes at
+    head dim `d` (0 where `d` does not take them; on the card)."""
     fn = build.load(BWD_NAME).pdm_attention_bwd_tma_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return {"dq_tma_kernel": fn(0), "dkv_tma_kernel": fn(1)}
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return {"dq_tma_kernel": fn(0, d), "dkv_tma_kernel": fn(1, d)}
 
 
-def attention_tma_smem_bytes() -> int:
-    """Dynamic shared memory a CTA of the wgmma loop takes (on the card)."""
+def attention_tma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory a CTA of the wgmma loop takes at head dim `d`
+    (0 where `d` does not take it; on the card)."""
     fn = build.load(NAME).pdm_attention_tma_smem_bytes
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(d)
 
 
 def encode_us(qkv: torch.Tensor, heads: int) -> float:
     """Host microseconds one forward launch spends encoding its TMA tensor
-    map at qkv's shape (head dim 64), the mean of 1000 encodes."""
+    maps at qkv's shape (one map at head dim 64, two at 72), the mean of 1000
+    encodes."""
     b, l, c3 = qkv.shape
     fn = build.load(NAME).pdm_fused_qkv_attention_encode_us
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5

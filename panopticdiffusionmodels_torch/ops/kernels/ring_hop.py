@@ -95,7 +95,7 @@ def hop_loop(d: int) -> str:
     """Which loop head dim `d` takes in `csrc/ring_hop.cu`, as the compiled
     library reports it (a static dispatch on D): 'wgmma+tma' or 'mma.sync'.
     On the card only."""
-    fn = build.load(NAME).pdm_attention_path
+    fn = build.load(NAME).pdm_ring_hop_path
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return "wgmma+tma" if fn(d) else "mma.sync"
 

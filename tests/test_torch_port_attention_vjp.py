@@ -26,7 +26,10 @@ from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as por
 
 torch.set_num_threads(1)
 
-SHAPES = [(2, l, h, d) for l in (18, 37) for h in (2, 4) for d in (8, 16)]
+# Small head dims, then the wgmma kernels' head dims on the card, U-ViT-H's
+# 72 and 64, at ragged L.
+SHAPES = [(2, l, h, d) for l in (18, 37) for h in (2, 4) for d in (8, 16)] + [
+    (2, l, 2, d) for l in (37, 65) for d in (64, 72)]
 
 
 def _inputs(b, l, h, d, seed):
