@@ -25,8 +25,9 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      arguments; the wgmma kernels must report no spills), the dynamic shared
      memory of the wgmma attention loop and the wgmma backward kernels at
      head dims 64 and 72 and of the LN-prologue GEMM, and each library's
-     choice of loop per head dim: kernels 1, 2 and 4 take the wgmma loop at
-     64 and 72 and mma.sync at 40, the hop the wgmma loop at 64 only;
+     choice of loop per head dim: kernels 1, 2, 4 and the hop take the wgmma
+     loop at 64 and 72 and mma.sync at 40; no wgmma kernel may report a
+     C7512 / C7514 / C7515 warning (ptxas serialised its wgmma);
   3. the forward kernel vs its plain PyTorch version in bf16 at the serving
      and training shapes, the pixel-space ones among them (U-ViT-M/4 at
      (64, 258, 12, 64), U-ViT-S/2 at (32, 257, 8, 64) and, with lse, at
@@ -56,8 +57,11 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      256-res sp=2 shard shapes, one Lq != Lk shard pair and the TPU verify
      shapes, nvalid = Lk, Lk - 64, 0 and a per-row mix, q a strided view of
      the packed qkv (max of the relative deviations of o, m and den < 5e-3),
-     each shape with its loop; timed in turns with flash SDPA and beside the
-     plain version;
+     each shape with its loop; U-ViT-H/2's hops at head dim 72 (16 heads):
+     (64, 129, 129) at sp = 2 and (128, 65, 65) with 63 real keys at sp = 4,
+     on the wgmma loop; one hop at head dim 40 on the mma.sync kernel; timed
+     in turns with flash SDPA and beside the plain version; the host cost of
+     the tensor-map encode a hop call at 64 and 72;
      3d. the (B, H, L, D) kernel `fused_attention` vs `attention_plain` at
      U-ViT-L/2 (32, 16, 258, 64), the U-ViT-H and UNet head dims and one
      L > 1024, contiguous and as transposed views (relative deviation
@@ -220,7 +224,7 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      kernel-1 launches (26, 17, 42, 29, 21, 29 blocks);
  30. U-ViT-H/2: 1 warm-up and 3 requests of 32 labels at 50 steps, CFG 0.4,
      exactly 1450 kernel-1 launches a request at (64, 258, 16, 72) on the
-     mma.sync loop; one latent_discrete step at batch 32 through kernels 1
+     wgmma loop; one latent_discrete step at batch 32 through kernels 1
      and 2 against the plain attention (loss < 5e-3, whole gradient < 2e-2)
      with exactly 29 forward and 29 backward kernel calls;
  31. data parallelism on the one card: (a) mscoco_uvit_small at batch 64,
@@ -252,7 +256,14 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      one step through the hop kernel against sp = 1 through kernels 1 and 2
      (loss < 5e-3, whole gradient < 2e-2), then 3 + 10 steps with exactly
      42 hop launches a step (21 blocks x 2 hops, no relaunch under
-     save_attn); (b) one checkpoint of mscoco_uvit_small's train state
+     save_attn); (c) U-ViT-H/2 (imagenet256_uvit_huge, 16 heads of 72)
+     latent_discrete at batch 32, mesh.sp = 2 in process, full width and
+     depth: one step through the hop kernel's wgmma loop at head dim 72
+     against sp = 1 through kernels 1 and 2 (loss < 5e-3, whole gradient
+     < 2e-2), 3 + 10 steps with exactly 58 hop launches a step (29 blocks x 2
+     hops) and none of the other kernels, one step under torch.profiler (the
+     busy share, the hop's device ms, 58 launches of its wgmma instance);
+     (b) one checkpoint of mscoco_uvit_small's train state
      (params, EMA and two AdamW moments) with block=True and one with
      block=False while training goes on: the loop's stall, the write's
      duration, both files read back equal to the state at the call;
@@ -444,15 +455,21 @@ LAUNCHES_PER_STEP = 26
 # 258 / 2 = 129 tokens a shard, 16 heads (B, Lq, Lk, H).  Last, phase 40b's
 # hops: mscoco_uvit_small at sp = 4, batch 8 folded to 32 rows, 334 and 590
 # tokens padded to 84 and 148 a shard, the last shard's keys 82 and 146
-# real (HOP_PAD_NVALID).
+# real (HOP_PAD_NVALID).  Then U-ViT-H/2's hops, 16 heads of 72 (B, Lq, Lk,
+# H, D): phase 35c's at sp = 2 (batch 32 folded to 64 rows, 129 tokens a
+# shard) and at sp = 4 (folded to 128 rows, 258 tokens padded to 4 x 65, the
+# last shard's keys 63 real).  Last, one hop at the UNet's head dim 40, the
+# mma.sync kernel's, which no path runs.
 HOP_SHAPES = [(16, 1063, 1063), (16, 551, 551), (16, 295, 295), (16, 167, 167),
               (2, 1063, 1063), (2, 1064, 1064), (2, 258, 258), (2, 295, 167),
-              (128, 129, 129, 16), (32, 84, 84), (32, 148, 148)]
-HOP_PAD_NVALID = {(32, 84, 84): 82, (32, 148, 148): 146}
+              (128, 129, 129, 16), (32, 84, 84), (32, 148, 148),
+              (64, 129, 129, 16, 72), (128, 65, 65, 16, 72), (16, 295, 295, 8, 40)]
+HOP_PAD_NVALID = {(32, 84, 84): 82, (32, 148, 148): 146, (128, 65, 65, 16, 72): 63}
 HOP_MAIN_SHAPES = HOP_SHAPES[:2]
 SP_UVIT_HOP_SHAPE = HOP_SHAPES[8]
-HOP_TIMED_SHAPES = HOP_MAIN_SHAPES + [SP_UVIT_HOP_SHAPE, *HOP_PAD_NVALID]
-HOP_HEADS, HOP_DIM = 8, 64
+SP_HUGE_HOP_SHAPE = HOP_SHAPES[11]
+HOP_TIMED_SHAPES = HOP_MAIN_SHAPES + [SP_UVIT_HOP_SHAPE, *HOP_PAD_NVALID, SP_HUGE_HOP_SHAPE]
+HOP_HEADS, HOP_DIM = 8, 64  # where a shape gives no heads or head dim
 # Sequence-parallel training of mscoco_uvit_small_512 at sp = 2, in-process:
 # 13 + 13 ring attentions a step, 2 hops each, one hop launch per hop over
 # the folded batch.
@@ -574,9 +591,11 @@ REMAT_TIMED = 5
 # Image-only t2i (phase 34): mscoco_uvit_mid (U-ViT-M/2, 17 blocks, 12 heads of
 # 64, L = 1 + 77 + 256 = 334) at the config's batch of 32.
 MID_BLOCKS, MID_BATCH = 17, 32
-# Sequence-parallel U-ViT-L/2 training (phase 35): latent_discrete at batch 64,
+# Sequence-parallel U-ViT-L/2 training (phase 35a): latent_discrete at batch 64,
 # mesh.sp = 2 in process, 21 ring attentions of 2 hops a step; 10 timed steps.
+# U-ViT-H/2 (35c) at batch 32 the same way: 29 ring attentions of 2 hops.
 SP_UVIT_HOPS, SP_UVIT_TIMED = 2 * UVIT_L_BLOCKS, 10
+SP_HUGE_HOPS = 2 * HUGE_BLOCKS
 # The data pipeline (phases 36a-c): a synthetic COCO tree of 128 JPEGs of 640 x
 # 480 (and a val split of 8), 5 captions each and panoptic PNGs of 6 segments
 # on an 80-pixel grid;
@@ -757,6 +776,8 @@ def phase_build():
                 print(f"    {name} [{kernel}]: {line.strip()}")
             if "tma_kernel" in kernel and "spill" in line:
                 assert "0 bytes spill stores, 0 bytes spill loads" in line, (name, kernel, line)
+            if "tma_kernel" in kernel:  # ptxas serialised a wgmma kernel's pipeline
+                assert not re.search(r"C751[245]", line), (name, kernel, line)
     for d in WGMMA_DIMS:
         bwd = fqa.attention_bwd_tma_smem_bytes(d)
         print(f"[2] dynamic shared memory a CTA at D = {d}: attention wgmma loop "
@@ -769,8 +790,7 @@ def phase_build():
     for d, got in loops.items():
         print(f"[2] D = {d}: kernel 1 {got[0]}, kernel 2 {got[1]}, kernel 4 {got[2]}, "
               f"kernel 3 (hop) {got[3]}")
-    want = {64: ("wgmma+tma",) * 4, 72: ("wgmma+tma",) * 3 + ("mma.sync",),
-            40: ("mma.sync",) * 4}
+    want = {64: ("wgmma+tma",) * 4, 72: ("wgmma+tma",) * 4, 40: ("mma.sync",) * 4}
     assert loops == want, loops
 
 
@@ -904,14 +924,15 @@ def phase_hop(gen):
     nvalid = Lk, Lk - 64, 0 for every row (0: an all-padding hop) and a
     mix of the three over the rows; at phase 40b's shapes also its own
     nvalid (HOP_PAD_NVALID) for every row and mixed with Lk over the rows.
-    Bar: max(rel o, rel m, rel den) < 5e-3.
+    Bar: max(rel o, rel m, rel den) < 5e-3.  Each shape's loop: wgmma + TMA
+    at head dims 64 and 72, mma.sync otherwise.
     Timed at nvalid = Lk in turns with flash SDPA, whose (out, lse) is the
-    same partial with den = 1, and beside the plain version."""
+    same partial with den = 1, and beside the plain version; on the wgmma
+    loop, the host us of a call's tensor-map encode for each kv view."""
     rows = []
-    d = HOP_DIM
-    scale = d ** -0.5
     for shape in HOP_SHAPES:
-        b, lq, lk, h = (*shape, HOP_HEADS)[:4]
+        b, lq, lk, h, d = (*shape, *(HOP_HEADS, HOP_DIM)[len(shape) - 3:])
+        scale = d ** -0.5
         c = h * d
         qkv = (torch.randn((b, lq, 3 * c), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
         q = qkv[..., :c]
@@ -935,13 +956,18 @@ def phase_hop(gen):
                 rels = [rel_dev(a, r) for a, r in zip(got, ref)]
                 abs_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
                 ok = all(torch.isfinite(a.float()).all() for a in got) and max(rels) < 5e-3
-                print(f"[3c] B{b} Lq{lq} Lk{lk} kv {kv_name} nvalid {nv_name}: rel o/m/den "
-                      f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} max|err| {abs_err:.2e}")
+                print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d} kv {kv_name} nvalid {nv_name}: "
+                      f"rel o/m/den {rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e} "
+                      f"max|err| {abs_err:.2e}")
                 assert ok, (b, lq, lk, kv_name, nv_name, rels)
                 worst = dict(rel=max(worst["rel"], *rels),
                              max_abs_err=max(worst["max_abs_err"], abs_err))
         row = dict(shape=[b, lq, lk, h, d], loop=ring_hop.hop_loop(d), max_rel_dev=worst["rel"],
                    max_abs_err=worst["max_abs_err"])
+        assert row["loop"] == ("wgmma+tma" if d in WGMMA_DIMS else "mma.sync"), row
+        if row["loop"] == "wgmma+tma":
+            row["encode_us"] = {name: ring_hop.encode_us(q, kv_in, h)
+                                for name, kv_in in kvs.items()}
         if shape in HOP_PAD_NVALID:  # the bar tells a hop that ignores the pad keys apart
             pad = torch.full((b,), HOP_PAD_NVALID[shape], dtype=torch.int32, device="cuda")
             full = torch.full((b,), lk, dtype=torch.int32, device="cuda")
@@ -949,11 +975,13 @@ def phase_hop(gen):
             ref = ring_hop.attention_hop_plain(q, kv, h, scale, pad)
             torch.cuda.synchronize()
             row["pad_ignored_rel"] = max(rel_dev(a, r) for a, r in zip(ignored, ref))
-            print(f"[3c] B{b} Lq{lq} Lk{lk}: the kernel at nvalid = Lk against the plain hop at "
-                  f"nvalid {HOP_PAD_NVALID[shape]}: rel {row['pad_ignored_rel']:.2e} (must "
+            print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: the kernel at nvalid = Lk against the plain "
+                  f"hop at nvalid {HOP_PAD_NVALID[shape]}: rel {row['pad_ignored_rel']:.2e} (must "
                   f"exceed the bar 5e-3)")
             assert row["pad_ignored_rel"] >= 5e-3, row["pad_ignored_rel"]
-        print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: {row['loop']} loop")
+        print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: {row['loop']} loop"
+              + "".join(f", encode {us:.2f} us a call (kv {name})"
+                        for name, us in row.get("encode_us", {}).items()))
         if shape in HOP_TIMED_SHAPES:
             full = torch.full((b,), lk, dtype=torch.int32, device="cuda")
             qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
@@ -965,7 +993,7 @@ def phase_hop(gen):
                 plain_ms=cuda_ms(lambda: ring_hop.attention_hop_plain(q, kv, h, scale, full),
                                  iters=5))
             row["bound_ms"], row["bound_by"] = hop_bound(b, lq, lk, c, h)
-            print(f"[3c] B{b} Lq{lq} Lk{lk}: kernel {row['ms']:.4f} ms "
+            print(f"[3c] B{b} Lq{lq} Lk{lk} H{h} D{d}: kernel {row['ms']:.4f} ms "
                   f"{fmt_spread(row['ms_spread'])}, plain {row['plain_ms']:.4f} ms, flash sdpa "
                   f"{row['library_ms']:.4f} ms {fmt_spread(row['library_ms_spread'])} "
                   f"(kernel/flash {row['ms'] / row['library_ms']:.2f}), bound "
@@ -1303,13 +1331,14 @@ def phase_serving():
     return pipe, batches[0]["contexts"], launches, latency
 
 
-def device_profile(fn, tag: str, what: str, unprofiled_s: float):
+def device_profile(fn, tag: str, what: str, unprofiled_s: float, with_rows: bool = False):
     """fn() under torch.profiler: device time by kernel, and the device's busy
     share of the wall time (the profiler slows the host, so the share is also
-    given against the unprofiled time of the same work).  CUDA activity only:
-    the kernels and busy time are those that CPU + CUDA tracing records (a
-    panoptic request: 31,451 / 31,461 kernels, 242.8 / 242.9 ms busy on an
-    H100), and the trace takes a third of the host time to collect (7.4 s
+    given against the unprofiled time of the same work).  Returns the busy ms,
+    and with `with_rows` also the (kernel name, device ms, launches) rows.
+    CUDA activity only: the kernels and busy time are those that CPU + CUDA
+    tracing records (a panoptic request: 31,451 / 31,461 kernels, 242.8 /
+    242.9 ms busy on an H100), and the trace takes a third of the host time to collect (7.4 s
     against 20.4 s of `key_averages` for that request)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1335,7 +1364,7 @@ def device_profile(fn, tag: str, what: str, unprofiled_s: float):
           f"{unprofiled_s * 1e3:.1f} ms)")
     for name, ms, count in rows[:25]:
         print(f"[{tag}] {ms:9.3f} ms {count:6d}x  {name[:110]}")
-    return busy_ms
+    return (busy_ms, rows) if with_rows else busy_ms
 
 
 def phase_profile(pipe, contexts, latency):
@@ -1783,6 +1812,21 @@ def make_latent_trainer(tmp, mesh=None):
     trainer.dataset.train = CFGLabelDataset(trainer.dataset.train, P_UNCOND, 1000)
     assert trainer.config.nnet.use_checkpoint and trainer.config.nnet.remat_policy == "save_attn"
     return trainer
+
+
+def make_huge_trainer(tmp, mesh=None):
+    """`Trainer` for imagenet256_uvit_huge (latent_discrete, U-ViT-H/2 at full
+    width and depth, 16 heads of 72, from the seeded initialisation) at batch
+    32 on synthetic latent moments (32, 32, 8) with labels in [0, 1000)."""
+    config = get_config("imagenet256_uvit_huge")
+    h, w, c = config.z_shape
+    config.dataset = d(name="synthetic", style="imagenet", n=4 * HUGE_BATCH,
+                       z_shape=(h, w, 2 * c), num_classes=1000)
+    config.train.batch_size = HUGE_BATCH
+    config.train.log_interval = 5
+    config.num_workers = 0
+    config.mesh.update(mesh or {})
+    return Trainer(config, os.path.join(tmp, "run_imagenet256_uvit_huge"), device="cuda")
 
 
 def make_pixel_trainer(tmp):
@@ -2389,13 +2433,7 @@ def phase_uvit_huge(pipe, tmp):
                   card=card_line())
     print(f"[30] U-ViT-H/2 ImageNet-256 serving: {json.dumps(result)}")
 
-    config = get_config("imagenet256_uvit_huge")
-    h_, w_, c_ = config.z_shape
-    config.dataset = d(name="synthetic", style="imagenet", n=2 * HUGE_BATCH,
-                       z_shape=(h_, w_, 2 * c_), num_classes=1000)
-    config.train.batch_size = HUGE_BATCH
-    config.num_workers = 0
-    trainer = Trainer(config, os.path.join(tmp, "run_imagenet256_uvit_huge"), device="cuda")
+    trainer = make_huge_trainer(tmp)
     torch.cuda.synchronize()
     zero_counts()
     phase_train_parity(trainer, HUGE_BATCH, ("auto", "plain"), "30")
@@ -2724,14 +2762,13 @@ def grads_vector_params(trainer) -> torch.Tensor:
     return torch.cat([p.detach().flatten().float() for p in trainer.state.params.values()])
 
 
-def phase_sp_uvit(tmp: str):
-    """35a: U-ViT-L/2 latent_discrete at batch 64, mesh.sp = 2 in process:
-    one step through the ring's hop kernel against sp = 1 through kernels 1
-    and 2 (same weights, batch and draws), then 3 + 10 steps with exactly 42
-    hop launches a step and none of the other kernels."""
-    trainer = make_latent_trainer(tmp, mesh=dict(sp=SP, sp_mode="in_process"))
-    assert trainer.nnet.sp is trainer.sp and trainer.config.train.batch_size == LATENT_BATCH
-    batch, noise = parity_batch(trainer, LATENT_BATCH)
+def sp_train(trainer, batch_size: int, hops: int, tag: str, what: str):
+    """One step of an sp = 2 in-process trainer through the ring's hop kernel
+    against sp = 1 through kernels 1 and 2 (same weights, batch and draws),
+    with exactly `hops` hop launches and none of the other kernels; then 3 +
+    SP_UVIT_TIMED steps with `hops` hop launches a step."""
+    assert trainer.nnet.sp is trainer.sp and trainer.config.train.batch_size == batch_size
+    batch, noise = parity_batch(trainer, batch_size)
     out = {}
     for arm, sp, impl in (("sp2", trainer.sp, "ring"), ("sp1", None, "auto")):
         set_sp(trainer.nnet, sp)
@@ -2742,14 +2779,41 @@ def phase_sp_uvit(tmp: str):
         out[arm] = (train_loss(metrics), grads_vector(trainer), read_counts())
     set_sp(trainer.nnet, trainer.sp)
     set_attn_impl(trainer.nnet, "ring")
-    assert out["sp2"][2] == {k: SP_UVIT_HOPS if k == "attention_hop" else 0
+    assert out["sp2"][2] == {k: hops if k == "attention_hop" else 0
                              for k in out["sp2"][2]}, out["sp2"][2]
-    compare_steps(out["sp2"][:2], out["sp1"][:2], "35a",
-                  f"U-ViT-L/2 sp=2 (ring, hop kernel) vs sp=1 (kernels 1 and 2), "
-                  f"B={LATENT_BATCH}")
-    counts, step_s = phase_train(trainer, "35a", {"attention_hop": SP_UVIT_HOPS},
-                                 timed=SP_UVIT_TIMED)
-    print(f"[35a] sp U-ViT-L/2 step {step_s * 1e3:.1f} ms ({card_line()})")
+    compare_steps(out["sp2"][:2], out["sp1"][:2], tag,
+                  f"{what} sp=2 (ring, hop kernel) vs sp=1 (kernels 1 and 2), B={batch_size}")
+    counts, step_s = phase_train(trainer, tag, {"attention_hop": hops}, timed=SP_UVIT_TIMED)
+    print(f"[{tag}] sp {what} step {step_s * 1e3:.1f} ms ({card_line()})")
+    return counts, step_s
+
+
+def phase_sp_uvit(tmp: str):
+    """35a: U-ViT-L/2 latent_discrete at batch 64, mesh.sp = 2 in process:
+    one step through the ring's hop kernel against sp = 1 through kernels 1
+    and 2 (same weights, batch and draws), then 3 + 10 steps with exactly 42
+    hop launches a step and none of the other kernels."""
+    trainer = make_latent_trainer(tmp, mesh=dict(sp=SP, sp_mode="in_process"))
+    return sp_train(trainer, LATENT_BATCH, SP_UVIT_HOPS, "35a", "U-ViT-L/2")
+
+
+def phase_sp_huge(tmp: str):
+    """35c: U-ViT-H/2 latent_discrete at batch 32, mesh.sp = 2 in process, at
+    full width and depth (16 heads of 72, 129 tokens a shard): `sp_train`
+    with exactly 58 hop launches a step, then one step under the profiler:
+    the busy share, the hop's device ms and its 58 launches of the wgmma
+    loop's hop instance at head dim 72."""
+    trainer = make_huge_trainer(tmp, mesh=dict(sp=SP, sp_mode="in_process"))
+    counts, step_s = sp_train(trainer, HUGE_BATCH, SP_HUGE_HOPS, "35c", "U-ViT-H/2")
+    batch = next(trainer.data_stream(start_step=trainer.state.step))
+    busy_ms, rows = device_profile(lambda: trainer.train_step(batch), "35c",
+                                   f"train step (batch {HUGE_BATCH})", step_s, with_rows=True)
+    hop = [(ms, n) for name, ms, n in rows if "attention_tma_kernel<3, true, 72>" in name]
+    assert len(hop) == 1 and hop[0][1] == SP_HUGE_HOPS, hop
+    result = dict(step_ms=step_s * 1e3, busy_ms=busy_ms, busy_share=busy_ms / (step_s * 1e3),
+                  hop_device_ms=hop[0][0], hop_launches=hop[0][1],
+                  hop_us_a_launch=hop[0][0] / hop[0][1] * 1e3, card=card_line())
+    print(f"[35c] U-ViT-H/2 sp=2 step: {json.dumps(result)}")
     return counts, step_s
 
 
@@ -3802,6 +3866,9 @@ def main() -> int:
         sp_uvit_counts, _ = phase_sp_uvit(tmp)
         mark("phase_sp_uvit")
         torch.cuda.empty_cache()
+        sp_huge_counts, _ = phase_sp_huge(tmp)
+        mark("phase_sp_huge")
+        torch.cuda.empty_cache()
         phase_async_checkpoint(small, tmp)
         mark("phase_async_checkpoint")
         del small
@@ -4015,6 +4082,8 @@ def main() -> int:
         launches_by_path={f"sp training ({TIMED_STEPS} steps)": sp_counts["attention_hop"],
                           f"sp U-ViT-L/2 latent_discrete training ({SP_UVIT_TIMED} steps)":
                               sp_uvit_counts["attention_hop"],
+                          f"sp U-ViT-H/2 latent_discrete training ({SP_UVIT_TIMED} steps, "
+                          "head dim 72)": sp_huge_counts["attention_hop"],
                           f"sp = 2 in process x dp = 2 rank 0, synthetic_tiny ({TINY_STEPS} "
                           "steps)": mesh["spdp"][0]["launches"]["attention_hop"],
                           f"sp = 4 mscoco_uvit_small step, every hop with nvalid < Lk "
@@ -4026,7 +4095,8 @@ def main() -> int:
         per="one hop at Lq=Lk=1063 plus one at Lq=Lk=551 (B=16 folded, H=8, D=64, "
             "nvalid=Lk), the pair each sp=2 dual-stream layer runs twice per train step; "
             f"sp U-ViT-L/2 training's hop is the row {list(SP_UVIT_HOP_SHAPE)} (B, Lq, Lk, "
-            "H); library_ms is flash SDPA (out, lse) on the same q, k, v",
+            f"H), sp U-ViT-H/2 training's the row {list(SP_HUGE_HOP_SHAPE)} (B, Lq, Lk, H, D); "
+            "library_ms is flash SDPA (out, lse) on the same q, k, v",
         shapes=hop_rows)
     mha_main = mha_rows[0]
     mha = dict(

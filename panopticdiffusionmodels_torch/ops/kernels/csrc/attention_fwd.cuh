@@ -74,9 +74,9 @@
 // -inf; and the epilogue stores o NOT divided by the row sum, with each
 // row's max m (natural units, -1e30 exactly for an all-padding row) and sum
 // den as (B, Lq, H) f32 in place of lse.  Every key tile is scored, padding
-// too: with nvalid = 0 the hop returns o = sum_j v_j and den = Lk.  The hop
-// has its own predicate (ring_hop.cu: head dim 64 only), since no path runs
-// a hop at 72.
+// too: with nvalid = 0 the hop returns o = sum_j v_j and den = Lk.  It runs
+// at head dims 64 and 72 (U-ViT-H's rings), with its own predicate
+// (ring_hop.cu: hop_uses_tma) and its own tensor maps over the ring's views.
 //
 // Static dispatch on D: D = 64 and 72 take the wgmma loop; every other D (a
 // multiple of 8 up to 128: 40 for the UNet, whose paths launch no kernel)
@@ -101,7 +101,7 @@ struct Strides {
 };
 
 
-// ---- the mma.sync loop: every head dim but 64 ----
+// ---- the mma.sync loop: every head dim but 64 and 72 ----
 
 constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;  // keys per K/V tile

@@ -30,24 +30,33 @@
 // reach device memory (online softmax).  The TPU kernel's lane-aligned head
 // groups, 128-lane stats blocks and Q_CHUNK do not carry over.
 //
-// Head dim 64 (every path of the port) runs the wgmma loop of
-// attention_fwd.cuh in its hop mode, kernel 1's loop with the nvalid mask,
-// two lengths and the unnormalised epilogue: per (128 query rows, head,
-// batch row) a producer warp loads the Q tiles once and streams 64-key K/V
-// tiles through a 3-stage TMA ring (full / empty mbarriers), two consumer
-// warpgroups run S = Q K^T and O += P V as wgmma m64n64k16.  The tensor maps
-// cover the views the ring passes: q as 3-D (C, Lq, B) with the view's row
-// and batch strides (row stride 3C for qkv[..., :C] of the local packed
-// shard), kv as (2C, Lk, B) (the rotated contiguous shard, or qkv[..., C:]
-// at hop 0), 64 x 64 boxes in the 128-byte swizzle, K of head h at column
-// 64 h and V at C + 64 h; TMA zero-fills rows past Lq and Lk per batch row.
+// Head dims 64 and 72 (every path of the port: 64 for the U-ViT-S and
+// U-ViT-L rings, 72 for U-ViT-H's 16 heads of 1152 / 16) run the wgmma loop
+// of attention_fwd.cuh in its hop mode, kernel 1's loop with the nvalid
+// mask, two lengths and the unnormalised epilogue: per (128 query rows,
+// head, batch row) a producer warp loads the Q tiles once and streams 64-key
+// K/V tiles through a 3-stage TMA ring (full / empty mbarriers), two
+// consumer warpgroups run S = Q K^T and O += P V as wgmma m64n64k16.  The
+// tensor maps cover the views the ring passes: q as 3-D (C, Lq, B) with the
+// view's row and batch strides (row stride 3C for qkv[..., :C] of the local
+// packed shard), kv as (2C, Lk, B) (the rotated contiguous shard, row stride
+// 2C, or qkv[..., C:] at hop 0, row stride 3C), 64 x 64 boxes in the
+// 128-byte swizzle, K of head h at column D h and V at C + D h; TMA
+// zero-fills rows past Lq and Lk per batch row.  At head dim 72 two more
+// maps over the same views, q's and kv's (K and V share it), read columns
+// 64-71 of each head in unswizzled 8 x 64 boxes from D h + 64 (V's from
+// C + D h + 64) into slots whose second kilobyte is zeros, as kernel 1 does
+// (attention_fwd.cuh): no column of another head is read.  So a call
+// encodes two maps at 64 and four at 72, on the host, every call
+// (pdm_ring_hop_encode_us times it).
 //
 // Every other head dim keeps the first design, the mma.sync kernel below:
 // one CTA per (64-row query tile, head, batch row), 4 warps of mma.sync
 // m16n8k16, single-buffered 64-key K/V tiles loaded through registers, V
-// fragments gathered with scalar shared-memory loads.  The hop has its own
-// predicate, hop_uses_tma (head dim 64 only; kernels 1 and 4 also take the
-// loop at 72), and pdm_ring_hop_path(D) reports it.
+// fragments gathered with scalar shared-memory loads.  No path of the port
+// runs a hop at such a head dim; the hop keeps its own predicate,
+// hop_uses_tma (the same head dims as kernels 1 and 4), and
+// pdm_ring_hop_path(D) reports it.
 //
 // Numerics: scores and the running statistics are f32, in the log2 domain
 // (s * scale * log2 e, exp2); m is converted back to natural units on the
@@ -57,6 +66,8 @@
 
 #include <math.h>
 
+#include <chrono>
+
 #include "attention_fwd.cuh"
 
 namespace {
@@ -65,10 +76,30 @@ namespace {
 // query rows of 4 warps, kBlockN-key tiles) and its kLn2 / kNegBig.
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The hop's own choice of loop: the wgmma loop at head dim 64 only.  Kernels
-// 1 and 4 take that loop at 72 too (attention_uses_tma), but no path runs a
-// hop at a head dim other than 64, so the hop keeps the mma.sync kernel there.
-inline bool hop_uses_tma(int D) { return D == 64; }
+// The hop's choice of loop: the wgmma loop at head dims 64 and 72, as in
+// kernels 1 and 4 (attention_uses_tma).
+inline bool hop_uses_tma(int D) { return D == 64 || D == 72; }
+
+// The wgmma loop's tensor maps over the views the ring passes (see the note
+// above): q over (C, Lq, B), k and v sharing one over (2C, Lk, B), and at
+// head dim 72 the 8-column remainder boxes over the same views.
+cudaError_t encode_hop_maps(TmaMaps* maps, const void* q, long long q_bs, long long q_rs,
+                            const void* kv, long long kv_bs, long long kv_rs, int B, int Lq,
+                            int Lk, int C, int D) {
+  cudaError_t err;
+  if ((err = encode_rows_map(&maps->q, q, q_bs, q_rs, C, Lq, B)) != cudaSuccess ||
+      (err = encode_rows_map(&maps->k, kv, kv_bs, kv_rs, 2 * C, Lk, B)) != cudaSuccess) {
+    return err;
+  }
+  maps->q_rem = maps->q, maps->k_rem = maps->k;  // never read at head dim 64
+  if (D > 64 &&
+      ((err = encode_rows_map(&maps->q_rem, q, q_bs, q_rs, C, Lq, B, 8)) != cudaSuccess ||
+       (err = encode_rows_map(&maps->k_rem, kv, kv_bs, kv_rs, 2 * C, Lk, B, 8)) != cudaSuccess)) {
+    return err;
+  }
+  maps->v = maps->k, maps->v_rem = maps->k_rem;
+  return cudaSuccess;
+}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -261,8 +292,8 @@ cudaError_t launch(const void* q, long q_bs, long q_rs, const void* kv, long kv_
 // `stream` and does not synchronise; `out`, `m` and `den` are allocated by
 // the caller, `nvalid` is a device array of B int32.  Strides are in
 // elements; every row and batch stride and every base must be 16-byte
-// aligned (multiples of 8 elements; TMA's rule for head dim 64, the 16-byte
-// loads' for the others).
+// aligned (multiples of 8 elements; TMA's rule for head dims 64 and 72, the
+// 16-byte loads' for the others).
 extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const void* kv,
                             long long kv_bs, long long kv_rs, const int* nvalid, void* out,
                             float* m, float* den, int B, int Lq, int Lk, int H, int D,
@@ -276,15 +307,14 @@ extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const
   const int C = H * D;
   if (hop_uses_tma(D)) {
     TmaMaps maps;
-    if ((err = encode_rows_map(&maps.q, q, q_bs, q_rs, C, Lq, B)) != cudaSuccess ||
-        (err = encode_rows_map(&maps.k, kv, kv_bs, kv_rs, 2 * C, Lk, B)) != cudaSuccess) {
-      return (int)err;
-    }
-    maps.v = maps.k;
-    maps.q_rem = maps.q, maps.k_rem = maps.v_rem = maps.k;  // never read at head dim 64
+    err = encode_hop_maps(&maps, q, q_bs, q_rs, kv, kv_bs, kv_rs, B, Lq, Lk, C, D);
+    if (err != cudaSuccess) return (int)err;
     const Strides os{(long)Lq * C, D, C};  // out is contiguous (B, Lq, C)
-    return launch_attention_tma<3, true>(maps, make_int3(0, 0, C), out, nullptr, os, B, H, Lq,
-                                         scale, stream, HopArgs{nvalid, m, den, Lk});
+    const HopArgs hop{nvalid, m, den, Lk};
+    return D == 64 ? launch_attention_tma<3, true, 64>(maps, make_int3(0, 0, C), out, nullptr,
+                                                       os, B, H, Lq, scale, stream, hop)
+                   : launch_attention_tma<3, true, 72>(maps, make_int3(0, 0, C), out, nullptr,
+                                                       os, B, H, Lq, scale, stream, hop);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PDM_HOP_LAUNCH(DP)                                                                  \
@@ -306,3 +336,23 @@ extern "C" int pdm_ring_hop(const void* q, long long q_bs, long long q_rs, const
 // 1 if head dim D takes the wgmma + TMA loop in the hop, 0 if the mma.sync
 // kernel.
 extern "C" int pdm_ring_hop_path(int D) { return hop_uses_tma(D) ? 1 : 0; }
+
+// Host microseconds of one encode of the hop's tensor maps at these views
+// (the per-call host cost the wgmma loop adds: two maps at head dim 64, four
+// at 72), averaged over `iters` encodes; negative if an encode fails or D
+// does not take the wgmma loop.
+extern "C" double pdm_ring_hop_encode_us(const void* q, long long q_bs, long long q_rs,
+                                         const void* kv, long long kv_bs, long long kv_rs, int B,
+                                         int Lq, int Lk, int H, int D, int iters) {
+  if (!hop_uses_tma(D)) return -1.0;
+  TmaMaps maps;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (encode_hop_maps(&maps, q, q_bs, q_rs, kv, kv_bs, kv_rs, B, Lq, Lk, H * D, D) !=
+        cudaSuccess) {
+      return -1.0;
+    }
+  }
+  const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
+  return dt.count() / iters;
+}

@@ -2,11 +2,13 @@
 
 Replaces the Pallas TPU kernel
 `panopticdiffusionmodels_tpu/ops/pallas/ring_hop.py::attention_hop` with the
-hand-written CUDA C++ kernel in `csrc/ring_hop.cu` (sm_90a).  For head dim 64
-it is the forward attention loop of `csrc/attention_fwd.cuh` in its hop mode
-(TMA into an mbarrier ring, wgmma), with TMA tensor maps over the views the
-ring passes; every other head dim keeps an mma.sync kernel (`hop_loop`).  A
-hop is the local attention of one sequence-parallel shard's
+hand-written CUDA C++ kernel in `csrc/ring_hop.cu` (sm_90a).  For head dims
+64 and 72 (U-ViT-H's 16 heads of 72 train at mesh.sp > 1) it is the forward
+attention loop of `csrc/attention_fwd.cuh` in its hop mode (TMA into an
+mbarrier ring, wgmma), with TMA tensor maps over the views the ring passes;
+every other head dim, which no path of the port runs, keeps an mma.sync
+kernel (`hop_loop`).  A hop is the local attention of one sequence-parallel
+shard's
 queries against one shard of keys and values, left unnormalised so that
 `ops/ring_attention.py` can combine the hops exactly:
 
@@ -98,6 +100,23 @@ def hop_loop(d: int) -> str:
     fn = build.load(NAME).pdm_ring_hop_path
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return "wgmma+tma" if fn(d) else "mma.sync"
+
+
+def encode_us(q: torch.Tensor, kv: torch.Tensor, heads: int) -> float:
+    """Host microseconds one hop launch spends encoding its TMA tensor maps
+    over these views (two maps at head dim 64, four at 72), the mean of 1000
+    encodes.  On the card only; raises for a head dim off the wgmma loop."""
+    b, lq, c = q.shape
+    fn = build.load(NAME).pdm_ring_hop_encode_us
+    i64, i32 = ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, i64, i64, ctypes.c_void_p, i64, i64] + [i32] * 6
+    fn.restype = ctypes.c_double
+    us = fn(q.data_ptr(), q.stride(0), q.stride(1), kv.data_ptr(), kv.stride(0), kv.stride(1),
+            b, lq, kv.shape[1], heads, c // heads, 1000)
+    if us < 0:
+        raise RuntimeError(f"attention_hop: tensor map encode failed for q {tuple(q.shape)}, "
+                           f"kv {tuple(kv.shape)}, {heads} heads")
+    return us
 
 
 def _check_operand(name: str, t: torch.Tensor, width: int) -> None:

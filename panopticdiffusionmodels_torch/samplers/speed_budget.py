@@ -21,7 +21,11 @@ from typing import List, Optional
 _log = logging.getLogger(__name__)
 
 # Validated ceilings per geometry, keyed by
-# (nnet family, embed_dim, depth, enable_panoptic, img_size).
+# (nnet family, embed_dim, depth, enable_panoptic, img_size, in_chans,
+# patch_size).  JAX's key stops at img_size, so there U-ViT-L/4 on 64x64
+# pixels (3 channels) reads the latent ImageNet-512 L/4's entry (4 channels)
+# without having been measured; here it has no entry (ROADMAP.md, deliberate
+# differences).
 # `max_accel`: the largest forecast-skip tau whose measured deviation stayed
 # within budget (None: no accel value is within budget on this geometry);
 # `interval_ok` / `gelu_ok`: those modes measured within budget.
@@ -29,19 +33,19 @@ _VALIDATED = {
     # ImageNet U-ViT-L/2 and L/4 (the same network at 258 tokens): accel 0.3
     # over budget, 0.2 within; the guidance interval fails the flagship gate
     # (quality_gate/trained_L/report.json).
-    ("uvit", 1024, 20, False, 32): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
-    ("uvit", 1024, 20, False, 64): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
+    ("uvit", 1024, 20, False, 32, 4, 2): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
+    ("uvit", 1024, 20, False, 64, 4, 4): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
     # Panoptic U-ViT-S/2 at 256 res: accel 0.2 and gelu pass the trained gate;
     # every guidance interval shifts the mask-id distribution
     # (quality_gate/trained_panoptic).
-    ("uvit_t2i", 512, 12, True, 32): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
+    ("uvit_t2i", 512, 12, True, 32, 4, 2): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
     # Panoptic S/2 at 512 res: accel fails at any tau
     # (quality_gate/trained_panoptic_512/report.json); only gelu is validated.
-    ("uvit_t2i", 512, 12, True, 64): dict(max_accel=None, interval_ok=False, gelu_ok=True),
+    ("uvit_t2i", 512, 12, True, 64, 4, 2): dict(max_accel=None, interval_ok=False, gelu_ok=True),
     # t2i-only S model: shares the image-stream measurements.
-    ("uvit_t2i", 512, 12, False, 32): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
+    ("uvit_t2i", 512, 12, False, 32, 4, 2): dict(max_accel=0.2, interval_ok=False, gelu_ok=True),
     # Panoptic U-ViT-L: accel 0.2 over budget on the mask stream.
-    ("uvit_t2i", 1024, 20, True, 32): dict(max_accel=0.1, interval_ok=False, gelu_ok=True),
+    ("uvit_t2i", 1024, 20, True, 32, 4, 2): dict(max_accel=0.1, interval_ok=False, gelu_ok=True),
 }
 
 
@@ -55,6 +59,8 @@ def _geometry_key(config):
         int(nnet.get("depth", 0)),
         bool(nnet.get("enable_panoptic", False)),
         int(nnet.get("img_size", 0)),
+        int(nnet.get("in_chans", 0)),
+        int(nnet.get("patch_size", 0)),
     )
 
 
@@ -70,7 +76,7 @@ def check_speed_modes(config, log: bool = True) -> List[str]:
     key = _geometry_key(config)
     entry: Optional[dict] = _VALIDATED.get(key)
     label = (f"geometry (family={key[0]}, embed_dim={key[1]}, depth={key[2]}, "
-             f"panoptic={key[3]}, img_size={key[4]})")
+             f"panoptic={key[3]}, img_size={key[4]}, in_chans={key[5]}, patch_size={key[6]})")
     if entry is None:
         modes = ", ".join(m for m, on in ((f"accel={accel}", accel),
                                           (f"cfg_interval={interval}", interval),

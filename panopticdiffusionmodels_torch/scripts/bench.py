@@ -109,22 +109,27 @@ def build_pipeline(components=None, accel=None, cfg_interval=None,
 
 def gate_certification(report_path, mode_spec):
     """(verdict, certifiable) for a recommended mode against a quality-gate
-    report, `bench.py`'s four cases:
+    report, `bench.py`'s four cases, the armed check first:
       - report absent or unreadable -> ("UNMEASURED", False);
-      - report present, mode never gated -> ("UNMEASURED", True);
-      - report present, no channel armed -> ("UNARMED", False);
-      - otherwise the mode's verdict, certifiable."""
+      - report present, no channel armed -> ("UNARMED", False), whether or
+        not it lists the mode;
+      - armed, mode never gated or its entry without a verdict ->
+        ("UNMEASURED", True);
+      - otherwise the mode's verdict, certifiable.
+    The root `bench.py` checks the mode before the arming, so an unarmed
+    report without the mode reads as certifiable there (ROADMAP.md,
+    deliberate differences)."""
     try:
         with open(report_path) as f:
             rep = json.load(f)
     except (OSError, ValueError):
         return "UNMEASURED", False
-    entry = rep.get("modes", {}).get(mode_spec)
-    if entry is None:
-        return "UNMEASURED", True
     if not rep.get("report_armed", False):
         return "UNARMED", False
-    return entry["verdict"], True
+    verdict = (rep.get("modes", {}).get(mode_spec) or {}).get("verdict")
+    if verdict is None:
+        return "UNMEASURED", True
+    return verdict, True
 
 
 def _time_pipeline(pipe: GenerationPipeline, batch_size: int, reps: int) -> float:

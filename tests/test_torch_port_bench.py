@@ -15,7 +15,7 @@ fixed directory when imported).
   against the JAX protocol on the same weights and noise: latents before the
   decode at rtol 1e-4 / atol 1e-5, images after the bf16 decode at relative
   deviation < 2e-2, and the same count of real network evals.
-- `gate_certification` on its four cases and on the repo's
+- `gate_certification` on its four cases (the arming checked first) and on the repo's
   quality_gate/trained_L/report.json; the recommended-mode constants equal
   the root script's (read from its source without running it); `main` prints
   one JSON line with exactly the root script's keys.
@@ -186,6 +186,20 @@ def test_gate_certification_cases(tmp_path):
         ("UNARMED", False)
     assert bench.REPORT == ROOT / "quality_gate" / "trained_L" / "report.json"
     assert bench.gate_certification(bench.REPORT, spec) == want == ("PASS", True)
+
+
+@pytest.mark.parametrize("payload,want", [
+    ({"modes": {}, "report_armed": False}, ("UNARMED", False)),
+    ({"modes": {}}, ("UNARMED", False)),
+    ({"modes": {"<spec>": {"tv": 0.1}}, "report_armed": True}, ("UNMEASURED", True)),
+], ids=["unarmed-mode-absent", "arming-absent-mode-absent", "armed-entry-without-verdict"])
+def test_gate_certification_checks_arming_first(tmp_path, payload, want):
+    """The arming is checked before the mode, so an unarmed report that never
+    gated the mode is not certifiable; an armed entry without a verdict is
+    unmeasured, not a KeyError (the root bench.py differs on both)."""
+    spec = bench.RECOMMENDED_MODE_SPEC
+    payload = json.loads(json.dumps(payload).replace("<spec>", spec))
+    assert bench.gate_certification(_report(tmp_path, payload), spec) == want
 
 
 def test_constants_equal_the_root_bench():

@@ -6,7 +6,8 @@ batch, the rotation a `torch.roll`) must equal JAX `ring_attention_qkv` on a
 CPU mesh `make_mesh(dp=1, sp=sp)` (conftest gives 8 devices), forward at
 rtol / atol 1e-5 and gradient at rtol 1e-4 / atol 1e-5, the JAX tests' own
 (`tests/test_ring_attention.py:33-104`), for sp = 2, 4, 8 and the padded
-(L, sp) = (18, 4), (21, 4), (10, 8).  The tiny UViTT2I at sp = 2 must equal
+(L, sp) = (18, 4), (21, 4), (10, 8), and (21, 2) at 16 heads of 72
+(U-ViT-H's head dim).  The tiny UViTT2I at sp = 2 must equal
 the JAX model on the sp = 2 ring at rtol 1e-4 / atol 1e-5.
 """
 import logging
@@ -33,23 +34,29 @@ HEADS, C = 4, 32
 SCALE = (C // HEADS) ** -0.5
 
 
-def _qkv(b, l, seed):
+def _qkv(b, l, seed, c=C):
     rng = np.random.default_rng(seed)
-    return rng.normal(size=(b, l, 3 * C)).astype(np.float32)
+    return rng.normal(size=(b, l, 3 * c)).astype(np.float32)
 
 
-@pytest.mark.parametrize("l,sp", [(16, 2), (16, 4), (16, 8), (18, 4), (21, 4), (10, 8)])
-def test_ring_matches_jax_ring(l, sp):
-    x = _qkv(2, l, seed=l + sp)
+# (l, sp) at 4 heads of 8; one case at U-ViT-H's 16 heads of 72 with 21
+# tokens over 2 shards (the second holds 10 real keys of 11).
+@pytest.mark.parametrize("l,sp,heads,d", [
+    *(pytest.param(l, sp, HEADS, C // HEADS, id=f"{l}-{sp}")
+      for l, sp in [(16, 2), (16, 4), (16, 8), (18, 4), (21, 4), (10, 8)]),
+    pytest.param(21, 2, 16, 72, id="21-2-d72")])
+def test_ring_matches_jax_ring(l, sp, heads, d):
+    scale = d ** -0.5
+    x = _qkv(2, l, seed=l + sp, c=heads * d)
     ts = token_sharding(make_mesh(dp=1, sp=sp))
 
     def jax_loss(t):
-        out = jax_ring(t, HEADS, SCALE, ts)
+        out = jax_ring(t, heads, scale, ts)
         return jnp.sum(out ** 2), out
 
     (_, want), want_grad = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_()
-    out = ring_attention_qkv(xt, HEADS, SCALE, InProcessSP(sp))
+    out = ring_attention_qkv(xt, heads, scale, InProcessSP(sp))
     (out ** 2).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_grad), rtol=1e-4, atol=1e-5)

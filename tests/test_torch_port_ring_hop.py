@@ -6,7 +6,9 @@ interpret mode (its (B, groups, Lq, 128) stats mapped through `_stats`), on
 the same numpy inputs, with nvalid = Lk, Lk - 3 and 0 (an all-padding hop):
 rtol / atol 1e-5, the JAX tests' own (`tests/test_ring_attention.py:107-132`).
 The hop Function's gradient, with cotangents into o, m and den, must equal
-`jax.grad` through `_hop_xla` at rtol 1e-4 / atol 1e-5 (l.135-171).
+`jax.grad` through `_hop_xla` at rtol 1e-4 / atol 1e-5 (l.135-171).  Both at
+head dim 64 (4 heads) and at U-ViT-H's 72 (16 heads: 16 x 72 = 9 x 128 is
+the JAX kernel's smallest lane-aligned head group there).
 """
 import jax
 import jax.numpy as jnp
@@ -25,30 +27,38 @@ B, LQ, LK, HEADS, D = 2, 8, 16, 4, 64  # d = 64: a lane-aligned head group for P
 C = HEADS * D
 SCALE = D ** -0.5
 NVALIDS = (LK, LK - 3, 0)
+# (heads, head dim) of each case; the head dim 64 cases keep their bare ids.
+GEOMETRIES = {64: (HEADS, D), 72: (16, 72)}
+BY_DIM = [pytest.param(nv, dim, id=str(nv) if dim == 64 else f"{nv}-d{dim}")
+          for dim in GEOMETRIES for nv in NVALIDS]
 
 
-def _inputs(seed):
+def _inputs(seed, dim=64):
+    heads, d = GEOMETRIES[dim]
     rng = np.random.default_rng(seed)
-    q = (rng.normal(size=(B, LQ, C)) * 0.5).astype(np.float32)
-    kv = (rng.normal(size=(B, LK, 2 * C)) * 0.5).astype(np.float32)
+    q = (rng.normal(size=(B, LQ, heads * d)) * 0.5).astype(np.float32)
+    kv = (rng.normal(size=(B, LK, 2 * heads * d)) * 0.5).astype(np.float32)
     return q, kv
 
 
-def _port(q, kv, nvalid):
+def _port(q, kv, nvalid, heads=HEADS):
+    scale = (q.shape[-1] // heads) ** -0.5
     return [t.numpy() for t in ring_hop.attention_hop_plain(
-        torch.from_numpy(q), torch.from_numpy(kv), HEADS, SCALE, nvalid)]
+        torch.from_numpy(q), torch.from_numpy(kv), heads, scale, nvalid)]
 
 
-@pytest.mark.parametrize("nvalid", NVALIDS)
-def test_plain_matches_jax_hop(nvalid):
-    q, kv = _inputs(5)
-    o, m, den = _port(q, kv, nvalid)
-    o_x, m_x, den_x = (np.asarray(t) for t in _hop_xla(jnp.asarray(q), jnp.asarray(kv), HEADS,
-                                                       SCALE, nvalid))
-    o_k, m_k, den_k = jax_attention_hop(jnp.asarray(q), jnp.asarray(kv), HEADS, SCALE, nvalid,
+@pytest.mark.parametrize("nvalid,dim", BY_DIM)
+def test_plain_matches_jax_hop(nvalid, dim):
+    heads, d = GEOMETRIES[dim]
+    scale = d ** -0.5
+    q, kv = _inputs(5, dim)
+    o, m, den = _port(q, kv, nvalid, heads)
+    o_x, m_x, den_x = (np.asarray(t) for t in _hop_xla(jnp.asarray(q), jnp.asarray(kv), heads,
+                                                       scale, nvalid))
+    o_k, m_k, den_k = jax_attention_hop(jnp.asarray(q), jnp.asarray(kv), heads, scale, nvalid,
                                         interpret=True)
     for want_m, want_den, want_o in ((m_x, den_x, o_x),
-                                     (_stats(m_k, HEADS), _stats(den_k, HEADS), o_k)):
+                                     (_stats(m_k, heads), _stats(den_k, heads), o_k)):
         np.testing.assert_allclose(m, np.asarray(want_m)[..., 0], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(den, np.asarray(want_den)[..., 0], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(o, np.asarray(want_o), rtol=1e-5, atol=1e-5)
@@ -71,20 +81,22 @@ def test_plain_takes_strided_q_and_per_row_nvalid():
             np.testing.assert_array_equal(g[row:row + 1].numpy(), w)
 
 
-@pytest.mark.parametrize("nvalid", NVALIDS)
-def test_hop_function_grad_matches_jax(nvalid):
-    q, kv = _inputs(7)
+@pytest.mark.parametrize("nvalid,dim", BY_DIM)
+def test_hop_function_grad_matches_jax(nvalid, dim):
+    heads, d = GEOMETRIES[dim]
+    scale = d ** -0.5
+    q, kv = _inputs(7, dim)
     rng = np.random.default_rng(8)
-    wm = rng.normal(size=(B, LQ, HEADS)).astype(np.float32) * 1e-2
+    wm = rng.normal(size=(B, LQ, heads)).astype(np.float32) * 1e-2
 
     def jax_loss(q_, kv_):
-        o, m, den = _hop_xla(q_, kv_, HEADS, SCALE, jnp.int32(nvalid))
+        o, m, den = _hop_xla(q_, kv_, heads, scale, jnp.int32(nvalid))
         return jnp.sum(o ** 2) + jnp.sum(m[..., 0] * wm) + jnp.sum(jnp.log(den))
 
     want = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(kv))
     qt = torch.from_numpy(q).requires_grad_()
     kvt = torch.from_numpy(kv).requires_grad_()
-    o, m, den = RingHop.apply(qt, kvt, torch.tensor(nvalid, dtype=torch.int32), HEADS, SCALE)
+    o, m, den = RingHop.apply(qt, kvt, torch.tensor(nvalid, dtype=torch.int32), heads, scale)
     ((o ** 2).sum() + (m * torch.from_numpy(wm)).sum() + torch.log(den).sum()).backward()
     for got, w in zip((qt.grad, kvt.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
@@ -116,8 +128,10 @@ def test_hop_build_targets_hopper():
     src = (build.CSRC / f"{ring_hop.NAME}.cu").read_text()
     assert 'extern "C" int pdm_ring_hop' in src and "mma.sync" in src
     assert "scaled_dot_product" not in src and "cublas" not in src.lower()
-    # head dim 64: the shared wgmma loop of attention_fwd.cuh in its hop mode
-    assert '#include "attention_fwd.cuh"' in src and "launch_attention_tma<3, true>" in src
+    # head dims 64 and 72: the shared wgmma loop of attention_fwd.cuh in its hop mode
+    assert '#include "attention_fwd.cuh"' in src
+    assert "launch_attention_tma<3, true, 64>" in src and "launch_attention_tma<3, true, 72>" in src
+    assert "inline bool hop_uses_tma(int D) { return D == 64 || D == 72; }" in src
     loop = (build.CSRC / "attention_fwd.cuh").read_text()
     assert "wgmma_m64n64k16_ss" in loop and "wgmma_m64n64k16_rs_tnsp_b" in loop
     assert "wgmma.mma_async" in (build.CSRC / "hopper.cuh").read_text()

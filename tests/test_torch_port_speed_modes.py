@@ -1,7 +1,8 @@
 """The port's sampling speed modes against the JAX package: the CFG wrappers'
 `cfg_on` / `want_mask_delta`, DPM-Solver++ with forecast-skip (`accel_tau`),
 the guidance interval (`cfg_interval`) in both orientations and the
-mask-guidance hold, and `check_speed_modes`.
+mask-guidance hold, and `check_speed_modes` (the port's key adds the input
+channels and patch size to JAX's).
 
 Both solvers integrate one closed-form network behind each package's own CFG
 wrapper, from the same numpy noise; trajectories must match at f32 rtol 1e-4
@@ -192,10 +193,18 @@ def test_cfg_class_cond_cfg_on_matches_jax(cfg_on):
     assert calls == [6 if cfg_on else 3]  # cond-only: one forward at batch B
 
 
+def _measured_on(key):
+    """(in_chans, patch_size) of the latent geometry a JAX key was measured
+    on: 4 latent channels; U-ViT-L/4 at 64x64 latents, patch 2 otherwise."""
+    family, _, _, _, img_size = key
+    return 4, 4 if family == "uvit" and img_size == 64 else 2
+
+
 def _config(key, accel=0.0, interval=(), gelu=False):
     family, embed_dim, depth, panoptic, img_size = key
+    in_chans, patch_size = _measured_on(key)
     nnet = d(name=family, embed_dim=embed_dim, depth=depth, img_size=img_size,
-             gelu_approx=gelu)
+             in_chans=in_chans, patch_size=patch_size, gelu_approx=gelu)
     if family == "uvit_t2i":
         nnet.enable_panoptic = panoptic
     return d(nnet=nnet, sample=d(accel=accel, cfg_interval=interval))
@@ -208,10 +217,15 @@ MODES = [dict(accel=0.2), dict(accel=0.1), dict(accel=0.3), dict(interval=(0.0, 
 @pytest.mark.parametrize("key", sorted(jax_budget._VALIDATED) + [("uvit", 768, 12, False, 32)],
                          ids=str)
 def test_check_speed_modes_matches_jax(key):
-    assert speed_budget._VALIDATED == jax_budget._VALIDATED
+    """The port keys the same entries with the input channels and patch size
+    added; on the geometry each JAX entry was measured on, both packages
+    warn alike."""
+    assert {k[:5]: v for k, v in speed_budget._VALIDATED.items()} == jax_budget._VALIDATED
+    assert len(speed_budget._VALIDATED) == len(jax_budget._VALIDATED)
     for mode in MODES:
         cfg = _config(key, **mode)
-        assert speed_budget._geometry_key(cfg) == jax_budget._geometry_key(cfg) == key
+        assert jax_budget._geometry_key(cfg) == key
+        assert speed_budget._geometry_key(cfg) == key + _measured_on(key)
         ours = speed_budget.check_speed_modes(cfg, log=False)
         ref = jax_budget.check_speed_modes(cfg, log=False)
         assert len(ours) == len(ref), (mode, ours, ref)
