@@ -237,7 +237,9 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      batch of 16 through `fit` with a checkpoint every step: the ranks'
      parameters bit-identical after 3 steps, their update against one
      process at batch 16 < 2e-2, only rank 0 wrote, 10 + 10 kernel calls a
-     step in each rank; step times beside one process's;
+     step in each rank; step times beside one process's; its children (a's
+     and b's at once) run beside 37-41, as 37's do, so they share the host
+     and the card with them;
  32. every remat policy (None, 'nothing', 'everything', 'dots',
      'dots_no_batch', 'save_attn') and use_checkpoint=False on
      mscoco_uvit_small at batch 64, fine-tune mode: one step each on the
@@ -278,7 +280,8 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      batch 64, fine-tune mode, save_attn, from those features through the
      native loader (input_pipeline 'native'), 3 + 20 steps with exactly
      26 + 26 kernel calls a step, then blocks of 5 steps in turns with the
-     Python Loader, and the host's time to assemble a batch with each; (c)
+     Python Loader, and the host's time to assemble a batch with each
+     (`bench_loader.rate`); (c)
      a seeded reference-format .pth through `scripts/convert_checkpoint.py`:
      `Trainer` resumes its `0.ckpt` strictly, parameters and EMA equal the
      .pth bit for bit, one step through kernels 1 and 2;
@@ -334,12 +337,29 @@ Phases (any failure exits non-zero; without a CUDA card it exits 1 at once):
      step, the share of the block parameters a rank holds (about 0.25), the
      step time (gloo; not judged); the children run beside 42's sampling and
      43, so both share the host and the card with them;
- 45. prints the bench's JSON line, the card line, the `kernels` JSON line
+ 45. beside 42's report, the measurement scripts
+     (`panopticdiffusionmodels_torch/scripts/`), each through its `main` at
+     full width with its repetitions cut (BENCH_REPS=1): verify_kernel (its
+     seven checks at their bars; kernel 1 and 2 launches of each train
+     route, 2 x 26 launches in the pipelined apply, 10 + 5 / 5 + 5 / 10 + 5
+     under the remat policies), verify_e2e at 100 steps (the loss falls,
+     the checkpoint resumes), bench_ring_hop (parity < 5e-3, 26 hop
+     launches a call), bench_protocols 256H (kernel 1 at head dim 72
+     < 5e-3; 29 x 50 launches a request), bench_serving at one batch of 4
+     (1300 and 520 launches a request), bench_speed_modes accel=0.2,
+     bench_breakdown and bench_eval_io at N = 64 on one set of U-ViT-L/2
+     components (21 launches an NFE), bench_attention, bench_unet at 10
+     PNDM steps (no kernel launch), bench_loader on 64 samples in batches
+     of 16, bench_train's panoptic protocol under policy '' (52 + 26 kernel
+     calls a step); each script's JSON line parsed, with the card's name
+     and power limit;
+ 46. prints the bench's JSON line, the card line, the `kernels` JSON line
      (all five kernels) and, last, the ok line.
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -376,12 +396,25 @@ from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from panopticdiffusionmodels_torch.parallel.sharding import full, local
 from panopticdiffusionmodels_torch.scripts import (
     bench,
+    bench_attention,
+    bench_breakdown,
+    bench_eval_io,
     bench_fused_ln,
+    bench_loader,
+    bench_protocols,
+    bench_ring_hop,
+    bench_serving,
+    bench_speed_modes,
+    bench_train,
+    bench_unet,
     convert_checkpoint,
     eval_rehearsal,
     extract_empty_feature,
     extract_mscoco_feature,
     extract_test_prompt_feature,
+    measure,
+    verify_e2e,
+    verify_kernel,
 )
 from panopticdiffusionmodels_torch.scripts import quality_gate as qg
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
@@ -468,7 +501,9 @@ HOP_PAD_NVALID = {(32, 84, 84): 82, (32, 148, 148): 146, (128, 65, 65, 16, 72): 
 HOP_MAIN_SHAPES = HOP_SHAPES[:2]
 SP_UVIT_HOP_SHAPE = HOP_SHAPES[8]
 SP_HUGE_HOP_SHAPE = HOP_SHAPES[11]
-HOP_TIMED_SHAPES = HOP_MAIN_SHAPES + [SP_UVIT_HOP_SHAPE, *HOP_PAD_NVALID, SP_HUGE_HOP_SHAPE]
+MMA_HOP_SHAPE = HOP_SHAPES[13]  # the mma.sync hop's row (no path runs D = 40)
+HOP_TIMED_SHAPES = HOP_MAIN_SHAPES + [SP_UVIT_HOP_SHAPE, *HOP_PAD_NVALID, SP_HUGE_HOP_SHAPE,
+                                      MMA_HOP_SHAPE]
 HOP_HEADS, HOP_DIM = 8, 64  # where a shape gives no heads or head dim
 # Sequence-parallel training of mscoco_uvit_small_512 at sp = 2, in-process:
 # 13 + 13 ring attentions a step, 2 hops each, one hop launch per hop over
@@ -601,10 +636,11 @@ SP_HUGE_HOPS = 2 * HUGE_BLOCKS
 # on an 80-pixel grid;
 # COCO_CHECK images' features held card vs CPU; mscoco_uvit_small's steps on
 # the native loader and the Python Loader in turns (COCO_ROUNDS x 2 blocks of
-# COCO_BLOCK steps each), and the host's assembly of COCO_HOST_BATCHES batches.
+# COCO_BLOCK steps each), and the host's assembly of a batch by each
+# (`bench_loader.rate`: 40 batches after one).
 COCO_IMAGES, COCO_W, COCO_H, COCO_SEGMENTS, COCO_CHECK = 128, 640, 480, 6, 2
 COCO_VAL_IMAGES = 8
-COCO_BLOCK, COCO_ROUNDS, COCO_HOST_BATCHES = 5, 2, 20
+COCO_BLOCK, COCO_ROUNDS = 5, 2
 # FSDP over two gloo processes on the one card (phase 37): synthetic_tiny as
 # phase 31b's, in f32, then mscoco_uvit_small at the global batch of 64 for 2 +
 # FSDP_TIMED steps.
@@ -646,15 +682,8 @@ PPFSDP_WORLD = 4
 PP_LOSS_BAR, PP_NORM_BAR = 1e-5, 1e-3
 
 
-def zero_counts() -> None:
-    fqa.launches = fqa.bwd_launches = ring_hop.launches = fa.launches = fl.launches = 0
-    fl.gemm_launches = 0
-
-
-def read_counts() -> dict:
-    return {"fused_attention_qkv": fqa.launches, "fused_attention_qkv_vjp": fqa.bwd_launches,
-            "attention_hop": ring_hop.launches, "fused_attention": fa.launches,
-            "fused_ln_qkv_attention": fl.launches, "ln_qkv_gemm": fl.gemm_launches}
+zero_counts = measure.zero_counts
+read_counts = measure.read_counts
 
 
 def card_line() -> str:
@@ -664,30 +693,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return measure.device_ms(fn, "cuda", iters, warmup)
 
 
 def alternate(kernel, library, repeats: int = 5, iters: int = 20) -> dict:
     """The kernel and its library call timed in turns (library, kernel,
     kernel, library) `repeats` times, `cuda_ms` each: medians and (min, max)
     spreads, so that the two share the card's state."""
-    ks, ls = [], []
-    for _ in range(repeats):
-        ls.append(cuda_ms(library, iters))
-        ks.append(cuda_ms(kernel, iters))
-        ks.append(cuda_ms(kernel, iters))
-        ls.append(cuda_ms(library, iters))
-    return dict(ms=float(np.median(ks)), ms_spread=[min(ks), max(ks)],
-                library_ms=float(np.median(ls)), library_ms_spread=[min(ls), max(ls)])
+    return measure.alternate(kernel, library, "cuda", repeats, iters)
 
 
 def cold_ms(fn, iters: int = 10) -> float:
@@ -707,9 +720,7 @@ def cold_ms(fn, iters: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.float(), b.float()
-    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+rel_dev = measure.rel_dev
 
 
 def tail_rel_dev(a: torch.Tensor, b: torch.Tensor, l: int, dim: int = 1):
@@ -1195,10 +1206,7 @@ def phase_chain():
     return results, counts
 
 
-def set_attn_impl(model: torch.nn.Module, impl: str) -> None:
-    for m in model.modules():
-        if isinstance(m, Attention):
-            m.attn_impl = impl
+set_attn_impl = measure.set_attn_impl
 
 
 def set_sp(model: torch.nn.Module, sp) -> None:
@@ -1525,11 +1533,13 @@ def phase_imagenet_recommended(pipe, exact):
 
 
 def phase_bench():
-    """The port's bench through its `main` at batch 32, 3 repetitions."""
-    os.environ.update(BENCH_ENV)
+    """The port's bench through its `main` at batch 32, 3 repetitions (the
+    variables set for the call alone: later phases run scripts at their own
+    defaults)."""
     zero_counts()
     t0 = time.perf_counter()
-    record = bench.main()
+    with environ(**BENCH_ENV):
+        record = bench.main()
     wall = time.perf_counter() - t0
     counts = read_counts()
     want = {"fused_attention_qkv": BENCH_LAUNCHES}
@@ -2601,12 +2611,26 @@ def ddp_gloo_child(rank: int, port: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_ddp(tmp: str):
+def start_ddp(tmp: str) -> tuple:
+    """31's children, started in a directory of their own under `tmp` (they
+    run beside 37-41): 31a's NCCL child at world 1 and 31b's two gloo ranks."""
+    tmp = os.path.join(tmp, "ddp")
+    os.makedirs(tmp, exist_ok=True)
+    out = os.path.join(tmp, "ddp_world1.json")
+    port = free_port()
+    return tmp, start_children([f"ddp_world1_child({tmp!r}, {free_port()}, {out!r})"] +
+                               [f"ddp_gloo_child({r}, {port}, {tmp!r})"
+                                for r in range(TINY_WORLD)])
+
+
+def phase_ddp(started: tuple):
     """31a: DDP at world 1 over NCCL against one process (a child process,
     so that no process group outlives it here); 31b: two gloo processes on
-    the one card against one process at their global batch."""
+    the one card against one process at their global batch; the children
+    started by `start_ddp`."""
+    tmp, procs = started
+    wait_children(procs, timeout=900)
     out = os.path.join(tmp, "ddp_world1.json")
-    run_children([f"ddp_world1_child({tmp!r}, {free_port()}, {out!r})"], timeout=600)
     with open(out) as f:
         a = json.load(f)
     print(f"[31a] DDP over NCCL at world 1, mscoco_uvit_small B={DDP_BATCH}: step "
@@ -2615,8 +2639,6 @@ def phase_ddp(tmp: str):
           f"(x{a['ddp']['step_ms'] / a['single']['step_ms']:.3f}); loss rel {a['loss_rel']:.2e}, "
           f"gradient rel {a['grad_rel']:.2e}; launches a step {a['launches']} ({card_line()})")
 
-    port = free_port()
-    run_children([f"ddp_gloo_child({r}, {port}, {tmp!r})" for r in range(TINY_WORLD)])
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
              for r in range(TINY_WORLD)]
     single = Trainer(tiny_cuda_config(), os.path.join(tmp, "wd_single"), device="cuda")
@@ -2955,17 +2977,6 @@ def phase_extract(tmp: str):
     return out, report
 
 
-def batch_ms(batches, n: int = COCO_HOST_BATCHES, drain: int = 6) -> float:
-    """ms a batch when `batches` is read back to back, after `drain` reads
-    (the native loader's queue holds 4 finished batches)."""
-    for _ in range(drain):
-        next(batches)
-    t0 = time.perf_counter()
-    for _ in range(n):
-        next(batches)
-    return (time.perf_counter() - t0) / n * 1e3
-
-
 def phase_native_train(tmp: str, features: str):
     """36b: mscoco_uvit_small at batch 64, fine-tune mode, save_attn, from
     36a's features through the native loader: 3 + 20 steps through `fit` with
@@ -2994,11 +3005,11 @@ def phase_native_train(tmp: str, features: str):
     native = NativeFeatureLoader(os.path.join(features, "train"), batch_size=64,
                                  moments_shape=(8, 32, 32), context_shape=(77, 768), seg_in=256,
                                  mask_size=64, num_threads=workers)
-    host = dict(native=batch_ms(iter(native)))
+    host = dict(native=bench_loader.rate(iter(native), 64)["ms_per_batch"])
     native.close()
     python = Loader(trainer.dataset.get_split("train", labeled=True), batch_size=64,
                     num_workers=workers)
-    host["python"] = batch_ms(iter(python))
+    host["python"] = bench_loader.rate(iter(python), 64)["ms_per_batch"]
     result = {arm: dict(step_ms=float(np.median(v)), spread=[min(v), max(v)])
               for arm, v in times.items()}
     print(f"[36b] mscoco_uvit_small B=64 from extracted features: input_pipeline 'native', "
@@ -3731,6 +3742,123 @@ def phase_pp_fsdp(tmp: str, started: tuple) -> dict:
     return dict(ranks=ranks, loss_rel=loss_rel, grad_norm_rel=norm_rel, tiny_diff=worst)
 
 
+# Phase 45: each measurement script's `main` at full width, its repetitions
+# cut (BENCH_REPS=1; one batch, one policy, one mode, BENCH_N = 64, a
+# 64-sample loader directory) and two cut by depth (verify_e2e's steps,
+# bench_unet's PNDM steps); the U-ViT-L/2 scripts share one set of
+# `bench.build_components`.
+SCRIPT_ENV = dict(BENCH_REPS="1")
+SCRIPT_SERVING_BATCH = "4"
+SCRIPT_EVAL_N = 64
+SCRIPT_LOADER_ARGS = ["64", "16"]
+SCRIPT_RING_HOPS = 13 * 2  # RING_DEPTH layers x sp hops a call
+SCRIPT_E2E_STEPS = 100  # verify_e2e's 150 cut by depth: 4 logged windows
+SCRIPT_UNET_STEPS = 10  # bench_unet's 50 PNDM steps cut by depth
+# verify_kernel's launches (kernel 1, kernel 2): a train route's for one
+# attention; a remat policy's over its U-ViT's 5 attentions (a replayed
+# attention launches kernel 1 twice); the pp = 1 apply's 2 micro-batches.
+SCRIPT_TRAIN_LAUNCHES = {"pallas_vjp": (1, 1), "pallas_recompute": (1, 0), "auto": (1, 1)}
+SCRIPT_REMAT_LAUNCHES = {None: (10, 5), "save_attn": (5, 5), "dots_no_batch": (10, 5)}
+SCRIPT_PIPELINE_LAUNCHES = 2 * UVIT_T2I_BLOCKS
+
+
+def run_script(name: str, module, argv=(), env=None, **kwargs) -> dict:
+    """`module.main(argv, device="cuda", **kwargs)` under `env`, its standard
+    output captured: every line echoed under the phase's tag, the last one
+    parsed as the script's JSON line and held equal to what `main` returned,
+    with the card's name and power limit in it."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with environ(**dict(SCRIPT_ENV, **(env or {}))), contextlib.redirect_stdout(buf):
+        record = module.main(list(argv), device="cuda", **kwargs)
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[45] {name}: {line}")
+    line = json.loads(lines[-1])
+    assert line == json.loads(json.dumps(record)), name
+    assert line["card"]["name"] and line["card"]["power_limit"], line["card"]
+    print(f"[45] {name} ({secs:.1f} s): {lines[-1][:1500]}")
+    return dict(line, seconds=secs)
+
+
+def phase_scripts() -> dict:
+    """45: the measurement scripts on the card, each through its `main`,
+    with the bars and launch counts the scripts state."""
+    out = {}
+    r = out["verify_kernel"] = run_script("verify_kernel", verify_kernel)
+    assert r["ok"] and r["checks"]["dispatch"]["launches"] == 1, r["checks"]["dispatch"]
+    assert all(c["rel_dev"] < 5e-3 for c in r["checks"]["kernel"])
+    assert r["checks"]["uvit_forward"]["rel_dev"] < 2e-2
+    assert all(c["loss_rel_dev"] < 5e-3 and c["grad_rel_dev"] < 5e-3
+               for c in r["checks"]["train"])
+    assert r["checks"]["pipeline"]["rel_dev"] < 1e-3
+    assert all(c["grad_rel_dev"] < 5e-3 for c in r["checks"]["remat"])
+    assert all(max(c["o"], c["m"], c["den"]) < 5e-3 for c in r["checks"]["hop"])
+
+    def pair(launches):
+        assert not any(v for k, v in launches.items() if not k.startswith("fused_attention_qkv"))
+        return launches["fused_attention_qkv"], launches["fused_attention_qkv_vjp"]
+
+    assert all(pair(c["launches"]) == SCRIPT_TRAIN_LAUNCHES[c["impl"]]
+               for c in r["checks"]["train"]), r["checks"]["train"]
+    assert len(r["checks"]["train"]) == 2 * len(SCRIPT_TRAIN_LAUNCHES)
+    assert r["checks"]["pipeline"]["kernel_launches"] == SCRIPT_PIPELINE_LAUNCHES
+    assert {c["policy"]: pair(c["launches"]) for c in r["checks"]["remat"]} == (
+        SCRIPT_REMAT_LAUNCHES), r["checks"]["remat"]
+    r = out["verify_e2e"] = run_script("verify_e2e", verify_e2e, steps=SCRIPT_E2E_STEPS)
+    assert r["ok"] and r["loss_last"] < r["loss_first"] and r["resumed_step"] == r["steps"]
+    assert r["launches"]["fused_attention_qkv"] and r["launches"]["fused_attention_qkv_vjp"]
+    r = out["bench_ring_hop"] = run_script("bench_ring_hop", bench_ring_hop)
+    assert r["parity_rel_dev"] < 5e-3, r["parity_rel_dev"]
+    assert r["kernel_hop"]["hop_launches_per_call"] == SCRIPT_RING_HOPS
+    assert r["plain_hop"]["hop_launches_per_call"] == 0
+    r = out["bench_protocols"] = run_script("bench_protocols", bench_protocols, ["256H"])
+    assert r["kernel_parity"]["shape"][3] == 72 and r["kernel_parity"]["rel_dev"] < 5e-3
+    assert r["kernel_parity"]["kernel_launches"] == 1
+    assert r["kernel_launches"] == r["requests"] * HUGE_BLOCKS * STEPS, r["kernel_launches"]
+    r = out["bench_serving"] = run_script("bench_serving", bench_serving, [SCRIPT_SERVING_BATCH])
+    exact, speed = (r["modes"][k][0]["kernel_launches"] for k in bench_serving.MODES)
+    assert exact == LAUNCHES_PER_REQUEST and speed == RECOMMENDED_EVALS * UVIT_T2I_BLOCKS, (
+        exact, speed)
+    components = bench.build_components()
+    r = out["bench_speed_modes"] = run_script("bench_speed_modes", bench_speed_modes,
+                                              ["accel=0.2"], components=components)
+    assert [m["kernel_launches"] for m in r["modes"]] == [
+        UVIT_L_BLOCKS * STEPS, UVIT_L_BLOCKS * RECOMMENDED_EVALS], r["modes"]
+    assert 0 < r["modes"][1]["rel_l2_dev"] < 0.5
+    r = out["bench_breakdown"] = run_script("bench_breakdown", bench_breakdown,
+                                            components=components)
+    assert r["kernel_launches_per_call"] == dict(
+        full=UVIT_L_BLOCKS * STEPS, solver=UVIT_L_BLOCKS * STEPS, decode=0,
+        cfg_forward=UVIT_L_BLOCKS), r["kernel_launches_per_call"]
+    r = out["bench_eval_io"] = run_script("bench_eval_io", bench_eval_io,
+                                          env=dict(BENCH_N=SCRIPT_EVAL_N),
+                                          components=components)
+    assert r["kernel_launches"] == 2 * SCRIPT_EVAL_N // 32 * UVIT_L_BLOCKS * STEPS
+    assert all(a["pngs"] == SCRIPT_EVAL_N for a in r["sample2dir"])
+    del components
+    torch.cuda.empty_cache()
+    r = out["bench_attention"] = run_script("bench_attention", bench_attention)
+    assert all(row["kernel_launches_per_call"] == 1 for row in r["isolated"])
+    assert [row["kernel_launches_per_forward"] for row in r["insitu"]] == [0, UVIT_L_BLOCKS]
+    r = out["bench_unet"] = run_script("bench_unet", bench_unet,
+                                       env=dict(BENCH_STEPS=SCRIPT_UNET_STEPS))
+    assert r["finite"] and r["finite_mask"] and not any(r["launches"].values()), r
+    r = out["bench_loader"] = run_script("bench_loader", bench_loader, SCRIPT_LOADER_ARGS)
+    assert r["native"]["samples_per_s"] > 0 and r["python"]["samples_per_s"] > 0
+    torch.cuda.empty_cache()
+    r = out["bench_train"] = run_script("bench_train", bench_train, [""])
+    steps = r["runs"][0]["steps"]
+    assert r["runs"][0]["launches"] == dict(
+        {k: 0 for k in read_counts()},
+        fused_attention_qkv=2 * LAUNCHES_PER_STEP * steps,  # the block replayed ('')
+        fused_attention_qkv_vjp=LAUNCHES_PER_STEP * steps), r["runs"][0]["launches"]
+    print(f"[45] seconds a script: "
+          f"{json.dumps({k: round(v['seconds'], 1) for k, v in out.items()})}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the "
@@ -3852,9 +3980,6 @@ def main() -> int:
     mark("phases 20-23")
 
     with tempfile.TemporaryDirectory() as tmp:
-        ddp = phase_ddp(tmp)
-        mark("phase_ddp")
-        torch.cuda.empty_cache()
         small = make_trainer("mscoco_uvit_small", tmp)
         remat = phase_remat(small)
         mark("phase_remat")
@@ -3873,7 +3998,7 @@ def main() -> int:
         mark("phase_async_checkpoint")
         del small
         torch.cuda.empty_cache()
-    mark("phases 31-35")
+    mark("phases 32-35")
 
     with tempfile.TemporaryDirectory() as tmp:
         unet_flops, _ = phase_unet_forward()
@@ -3907,6 +4032,7 @@ def main() -> int:
         mark("phase_convert")
         torch.cuda.empty_cache()
         fsdp_procs = start_fsdp(tmp)
+        ddp_started = start_ddp(tmp)  # 31's children beside 37-41, as 37's
         t0 = time.perf_counter()
         mesh = phase_mesh(tmp)
         mark("phase_mesh")
@@ -3920,9 +4046,11 @@ def main() -> int:
         mark("phase_mesh_sampling")
         fsdp = phase_fsdp(tmp, fsdp_procs)
         mark("phase_fsdp")
+        ddp = phase_ddp(ddp_started)
+        mark("phase_ddp")
         print(f"[38-41] wall: phases 38-40a {t1 - t0:.1f} s, 40b {t2 - t1:.1f} s, 41 "
               f"{time.perf_counter() - t2:.1f} s")
-    mark("phases 36-41")
+    mark("phases 31, 36-41")
 
     with tempfile.TemporaryDirectory() as tmp:
         # 44's gloo children and 42's report (host) run beside 42b-43
@@ -3943,12 +4071,16 @@ def main() -> int:
         t3 = time.perf_counter()
         pp_fsdp = phase_pp_fsdp(tmp, pp_started)
         mark("phase_pp_fsdp")
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        scripts = phase_scripts()  # beside 42's report, whose sqrtm runs on the host
+        mark("phase_scripts")
         gate = phase_gate_report(dict(gate, train=gate_train))
         mark("phase_gate_report")
-        print(f"[42-44] wall: gate training {t1 - t0:.1f} s, gate sampling {t2 - t1:.1f} s, "
-              f"rehearsal {t3 - t2:.1f} s, then pp x fsdp and the report "
-              f"{time.perf_counter() - t3:.1f} s")
-    mark("phases 42-44")
+        print(f"[42-45] wall: gate training {t1 - t0:.1f} s, gate sampling {t2 - t1:.1f} s, "
+              f"rehearsal {t3 - t2:.1f} s, pp x fsdp {t4 - t3:.1f} s, then the scripts and "
+              f"the report {time.perf_counter() - t4:.1f} s")
+    mark("phases 42-45")
 
     fwd_train, bwd_train = train_counts["fused_attention_qkv"], \
         train_counts["fused_attention_qkv_vjp"]
@@ -4010,7 +4142,14 @@ def main() -> int:
                           f"evaluation rehearsal, U-ViT-L/2 ({REHEARSAL_N} samples and a "
                           "warm-up request)": rehearsal["launches"],
                           f"pp = 2 x fsdp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
-                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv"]},
+                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv"],
+                          "scripts/bench_serving.py, a timed request of 4 in each mode":
+                              sum(m[0]["kernel_launches"]
+                                  for m in scripts["bench_serving"]["modes"].values()),
+                          "scripts/bench_protocols.py 256H (a warm-up and a timed request "
+                          "of 16)": scripts["bench_protocols"]["kernel_launches"],
+                          f"scripts/bench_eval_io.py (2 x {SCRIPT_EVAL_N} samples)":
+                              scripts["bench_eval_io"]["kernel_launches"]},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_dev=max(r["max_rel_dev"] for r in rows),
         kernel_ms=per_pair["ms"], **per_pair,
@@ -4059,7 +4198,10 @@ def main() -> int:
                           f"quality gate training, trained_panoptic ({gate['train']['steps']} "
                           "steps)": gate["train"]["launches"]["fused_attention_qkv_vjp"],
                           f"pp = 2 x fsdp = 2 rank 0, mscoco_uvit_small ({MESH_TIMED} steps)":
-                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv_vjp"]},
+                              pp_fsdp["ranks"][0]["launches"]["fused_attention_qkv_vjp"],
+                          "scripts/bench_train.py panoptic, a timed step (policy '')":
+                              scripts["bench_train"]["runs"][0]["launches"][
+                                  "fused_attention_qkv_vjp"]},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in bwd_rows),
         kernel_ms=per_step["ms"], **per_step,
@@ -4087,7 +4229,10 @@ def main() -> int:
                           f"sp = 2 in process x dp = 2 rank 0, synthetic_tiny ({TINY_STEPS} "
                           "steps)": mesh["spdp"][0]["launches"]["attention_hop"],
                           f"sp = 4 mscoco_uvit_small step, every hop with nvalid < Lk "
-                          f"(batch {MESH_BATCH})": uneven["hops"]},
+                          f"(batch {MESH_BATCH})": uneven["hops"],
+                          "scripts/bench_ring_hop.py, a call of the kernel arm (13 layers x "
+                          "2 hops)": scripts["bench_ring_hop"]["kernel_hop"][
+                              "hop_launches_per_call"]},
         max_abs_err=max(r["max_abs_err"] for r in hop_rows),
         max_rel_dev=max(r["max_rel_dev"] for r in hop_rows),
         kernel_ms=per_hop_pair["ms"], **per_hop_pair,

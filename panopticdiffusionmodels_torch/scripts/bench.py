@@ -62,20 +62,24 @@ REPORT = Path(__file__).resolve().parents[2] / "quality_gate" / "trained_L" / "r
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
-def build_components(device="cuda", depth: int = 20, embed_dim: int = 1024,
-                     num_heads: int = 16, img_size: int = 32, vae_geometry=None,
-                     dtype: torch.dtype = torch.bfloat16):
+def build_components(device="cuda", depth: int = None, embed_dim: int = None,
+                     num_heads: int = None, img_size: int = None, vae_geometry=None,
+                     dtype: torch.dtype = torch.bfloat16,
+                     config_name: str = "imagenet256_uvit_large"):
     """The protocol's pieces: (config, model, vae).  The config is
-    `imagenet256_uvit_large` computing in `dtype`; the model is its U-ViT-L/2
-    from seed 0 (tanh GELU with BENCH_GELU=tanh), with the packed-qkv
-    attention kernel on the card; the VAE is the SD f8 KL-VAE (or
-    `AutoencoderKL(**vae_geometry)`) from seed 1, computing in bf16 over f32
-    parameters.  The other arguments cut it to a tiny size for the CPU."""
-    config = get_config("imagenet256_uvit_large")
+    `config_name` (`imagenet256_uvit_large`, the headline's) computing in
+    `dtype`; the model is its U-ViT from seed 0 (tanh GELU with
+    BENCH_GELU=tanh), with the packed-qkv attention kernel on the card; the
+    VAE is the SD f8 KL-VAE (or `AutoencoderKL(**vae_geometry)`) from seed 1,
+    computing in bf16 over f32 parameters.  The other arguments
+    cut it to a tiny size for the CPU."""
+    config = get_config(config_name)
     config.compute_dtype = _DTYPE_NAMES[dtype]
-    config.z_shape = (img_size, img_size, 4)
-    config.nnet.update(depth=depth, embed_dim=embed_dim, num_heads=num_heads,
-                       img_size=img_size, gelu_approx=os.environ.get("BENCH_GELU", "") == "tanh")
+    dims = dict(depth=depth, embed_dim=embed_dim, num_heads=num_heads, img_size=img_size)
+    config.nnet.update({k: v for k, v in dims.items() if v is not None},
+                       gelu_approx=os.environ.get("BENCH_GELU", "") == "tanh")
+    size = config.nnet.img_size
+    config.z_shape = (size, size, config.z_shape[2])
     kwargs = dict(config.nnet)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
@@ -132,7 +136,7 @@ def gate_certification(report_path, mode_spec):
     return verdict, True
 
 
-def _time_pipeline(pipe: GenerationPipeline, batch_size: int, reps: int) -> float:
+def time_pipeline(pipe: GenerationPipeline, batch_size: int, reps: int) -> float:
     """Images/s of the best of `reps` timed requests after one warm-up; each
     draws its noise on the device and ends on a device-to-host copy."""
     y = torch.zeros((batch_size,), dtype=torch.int64, device=pipe.device)
@@ -160,7 +164,7 @@ def main(components=None) -> dict:
     batch_size = int(os.environ.get("BENCH_BATCH", "32"))
     reps = int(os.environ.get("BENCH_REPS", "3"))
     components = components or build_components()
-    imgs_per_sec = _time_pipeline(build_pipeline(components), batch_size, reps)
+    imgs_per_sec = time_pipeline(build_pipeline(components), batch_size, reps)
     record = {
         "metric": "imagenet256_uvitL_50step_dpmpp_cfg_images_per_sec_per_chip",
         "value": round(imgs_per_sec, 3),
@@ -168,7 +172,7 @@ def main(components=None) -> dict:
         "vs_baseline": round(imgs_per_sec / A100_BASELINE_EST, 3),
     }
     if os.environ.get("BENCH_RECOMMENDED", "on") != "off":
-        rec = _time_pipeline(build_pipeline(components, **RECOMMENDED_KNOBS), batch_size, reps)
+        rec = time_pipeline(build_pipeline(components, **RECOMMENDED_KNOBS), batch_size, reps)
         record.update(
             recommended_mode=RECOMMENDED_MODE_NAME,
             recommended_value=round(rec, 3),
