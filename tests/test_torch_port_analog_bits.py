@@ -7,8 +7,6 @@ import torch
 from panopticdiffusionmodels_tpu.diffusion import analog_bits as jax_bits
 from panopticdiffusionmodels_torch.diffusion import analog_bits
 
-torch.set_num_threads(1)
-
 
 @pytest.mark.parametrize("channels", [1, 3])
 def test_codec_matches_jax_and_round_trips(channels):

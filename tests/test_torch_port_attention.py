@@ -19,8 +19,6 @@ from panopticdiffusionmodels_torch.ops import attention as port_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as port_kernel
 
-torch.set_num_threads(1)
-
 # The wgmma loop's head dims on the card, U-ViT-H's 72 and 64, at ragged L.
 WGMMA_SHAPES = [(2, l, 2, d) for l in (37, 65) for d in (64, 72)]
 SHAPES = [(2, l, h, d) for l in (18, 37) for h in (2, 4) for d in (8, 16)] + WGMMA_SHAPES

@@ -24,8 +24,6 @@ from panopticdiffusionmodels_torch.ops import attention as port_attention
 from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as port_kernel
 
-torch.set_num_threads(1)
-
 # Small head dims, then the wgmma kernels' head dims on the card, U-ViT-H's
 # 72 and 64, at ragged L.
 SHAPES = [(2, l, h, d) for l in (18, 37) for h in (2, 4) for d in (8, 16)] + [

@@ -43,8 +43,6 @@ from panopticdiffusionmodels_torch.models.vae import get_model
 from panopticdiffusionmodels_torch.scripts import bench
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 
-torch.set_num_threads(1)
-
 ROOT = Path(__file__).resolve().parents[1]
 VAE_GEOM = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)
 TINY = dict(depth=4, embed_dim=32, num_heads=4, img_size=8, vae_geometry=VAE_GEOM)

@@ -42,8 +42,6 @@ from panopticdiffusionmodels_torch.scripts import (
     verify_kernel,
 )
 
-torch.set_num_threads(1)
-
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "panopticdiffusionmodels_torch" / "scripts"
 VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)

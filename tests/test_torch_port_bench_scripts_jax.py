@@ -40,8 +40,6 @@ from panopticdiffusionmodels_torch.models.vae import AutoencoderKL
 from panopticdiffusionmodels_torch.scripts import bench, bench_loader, bench_ring_hop
 from panopticdiffusionmodels_torch.scripts import bench_speed_modes as bsm
 
-torch.set_num_threads(1)
-
 VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)
 STEPS = 17  # accel 0.2 skips from 17 steps on
 MODE = "combo=0.2:0.0,0.5"  # forecast-skip and the guidance interval

@@ -20,8 +20,6 @@ from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from torch_port_train_common import batches
 
-torch.set_num_threads(1)
-
 
 @pytest.fixture
 def trainer(tmp_path):

@@ -29,7 +29,6 @@ from panopticdiffusionmodels_torch.scripts import convert_checkpoint
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import reference_nnet_state_dict
 
-torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = '''from panopticdiffusionmodels_torch.configs import get_config as zoo
 

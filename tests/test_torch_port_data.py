@@ -23,8 +23,6 @@ from panopticdiffusionmodels_torch.data.datasets import (
     min_pool_2d,
 )
 
-torch.set_num_threads(1)
-
 SYN = dict(n=24, z_shape=(4, 4, 8), clip_shape=(5, 6), mask_size=8, seed=3)
 
 

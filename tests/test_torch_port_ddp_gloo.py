@@ -35,8 +35,6 @@ from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.parallel import mesh as mesh_lib
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
-torch.set_num_threads(1)
-
 WORKER = Path(__file__).resolve().parent / "torch_port_ddp_worker.py"
 WORLD = 2
 

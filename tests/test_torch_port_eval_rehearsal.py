@@ -21,8 +21,6 @@ from panopticdiffusionmodels_torch.scripts import bench, eval_rehearsal
 
 REPO = Path(__file__).resolve().parents[1]
 
-torch.set_num_threads(1)
-
 
 def jax_keys() -> list:
     tree = ast.parse((REPO / "scripts" / "eval_rehearsal.py").read_text())

@@ -40,7 +40,6 @@ from panopticdiffusionmodels_torch.scripts import (  # noqa: E402
 )
 from torch_port_coco_common import IMAGE_IDS, write_coco_tree  # noqa: E402
 
-torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 SIZE = 32
 RTOL, ATOL = 1e-4, 1e-5

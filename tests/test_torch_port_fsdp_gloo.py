@@ -39,8 +39,6 @@ from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from torch_port_train_common import batches, jax_reference
 
-torch.set_num_threads(1)
-
 WORKER = Path(__file__).resolve().parent / "torch_port_fsdp_worker.py"
 WIDE = dict(embed_dim=128, mlp_ratio=4)
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -26,8 +26,6 @@ from panopticdiffusionmodels_torch.ops.kernels import build
 from panopticdiffusionmodels_torch.ops.kernels import fused_attention as port_kernel
 from panopticdiffusionmodels_torch.ops.kernels.tensor_map import tma_eligible
 
-torch.set_num_threads(1)
-
 SHAPES = [(1, 2, l, d) for l in (37, 258) for d in (40, 64, 72)] + [(1, 2, 1030, 8)]
 # port impl key -> the JAX impl key it must equal
 IMPLS = {"auto": "auto", "infer": "infer", "xla": "xla", "plain": "xla",

@@ -42,8 +42,6 @@ from panopticdiffusionmodels_torch.ops.kernels.fused_qkv_attention import (
 )
 from panopticdiffusionmodels_torch.scripts import bench_fused_ln as port_chain
 
-torch.set_num_threads(1)
-
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)

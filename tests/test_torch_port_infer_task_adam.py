@@ -30,8 +30,6 @@ from panopticdiffusionmodels_torch.train.trainer import Trainer, infer_task
 from torch_port_train_common import assert_step_matches, batches, jax_draws, port_step, to_port
 from torch_port_unet_common import train_jax_trainer
 
-torch.set_num_threads(2)
-
 STEPS = 3
 
 

@@ -29,8 +29,6 @@ from panopticdiffusionmodels_torch.utils.ldm_bridge import (
 from panopticdiffusionmodels_torch.utils.weights import unet_state_dict
 from torch_port_unet_common import TINY, ldm_state_dict, tiny_pair
 
-torch.set_num_threads(4)
-
 
 def port_convert(sd, mult, nrb):
     return {k: v.numpy() for k, v in

@@ -28,8 +28,6 @@ from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as por
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from torch_port_train_common import batches
 
-torch.set_num_threads(1)
-
 
 @functools.partial(jax.jit, static_argnums=(2, 3))
 def _jax_refs(qkv, g, heads, scale):

@@ -42,8 +42,6 @@ from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import to_tensors, uvit_state_dict, uvit_t2i_state_dict
 from torch_port_unet_common import unet_fields
 
-torch.set_num_threads(1)
-
 H, B, L, C = 4, 16, 6, 5
 
 

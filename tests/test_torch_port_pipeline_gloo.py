@@ -25,6 +25,7 @@ global batch of 16 in f32 and held at rtol / atol 1e-5
     dtypes differ by direction): losses at rtol 1e-4, grad_norm at 1e-2,
     parameters and EMA at atol 2e-5.
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -36,8 +37,6 @@ import torch_port_mesh_worker as worker
 from torch_port_train_common import (batches, jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer,
                                      to_port)
 
-torch.set_num_threads(1)
-
 STEPS = 3
 JAX_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -47,7 +46,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pp")
     scan = dict(scan_blocks=True)
     jt = jax_mesh_trainer(tmp / "jax", dict(pp=2), nnet=scan)
-    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
+    params = jax.device_get(jt.state.params)  # every JAX trainer's here
+    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(params).items()}
     raw = batches(STEPS + 1)
     steps = [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw)]
     one_ckpt = tmp / "pp_one_ckpts" / f"{STEPS}.ckpt"
@@ -68,7 +68,7 @@ def runs(tmp_path_factory):
     jax_runs = dict(pp=jax_mesh_steps(jt, raw[:STEPS]))
     for job, spec in (("micro", micro_spec), ("accum", accum_spec)):
         trainer = jax_mesh_trainer(tmp / f"jax_{job}", dict(pp=2), nnet=scan,
-                                   train=spec["config"]["train"])
+                                   train=spec["config"]["train"], params=params)
         jax_runs[job] = jax_mesh_steps(trainer, raw[:STEPS])
     refs["accum"] = mc.one_process(tmp, "accum_one", accum_spec)
     refs["bf16"] = mc.one_process(tmp, "bf16_one", bf16_spec)

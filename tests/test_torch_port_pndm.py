@@ -36,8 +36,6 @@ from panopticdiffusionmodels_torch.serving import GenerationPipeline
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from torch_port_unet_common import to_jax, tiny_pair, unet_fields
 
-torch.set_num_threads(4)
-
 N = 2
 
 

@@ -26,8 +26,6 @@ import torch_port_mesh_worker as worker
 from torch_port_train_common import (batches, jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer,
                                      to_port)
 
-torch.set_num_threads(1)
-
 STEPS = 3
 ONE_TOL = dict(rtol=1e-6, atol=1e-6)
 JAX_TOL = dict(rtol=1e-4, atol=1e-5)

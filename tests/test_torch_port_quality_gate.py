@@ -34,8 +34,6 @@ REPO = Path(__file__).resolve().parents[1]
 CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_entry_size_bytes",
               "jax_persistent_cache_min_compile_time_secs")
 
-torch.set_num_threads(1)
-
 
 @pytest.fixture(scope="module")
 def jqg():

@@ -51,8 +51,6 @@ from panopticdiffusionmodels_tpu.utils.torch_bridge import (
 )
 from panopticdiffusionmodels_torch.scripts import quality_gate as pqg
 
-torch.set_num_threads(1)
-
 VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, scale_factor=0.2301)
 TINY = pqg.Geometry(size=8, embed_dim=32, depth=4, num_heads=4, mask=16, clip_dim=16,
                     clip_tokens=7, vae=VAE, dtype=torch.float32)

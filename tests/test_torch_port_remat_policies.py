@@ -45,8 +45,6 @@ from panopticdiffusionmodels_torch.models.layers import REMAT_SAVES
 from panopticdiffusionmodels_torch.ops.kernels import fused_qkv_attention as port_kernel
 from panopticdiffusionmodels_torch.utils.weights import to_tensors, uvit_t2i_state_dict
 
-torch.set_num_threads(1)
-
 GEOM = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=32, depth=4, num_heads=4,
             clip_dim=16, num_clip_token=7, mask_bits=8, mask_size=16, enable_panoptic=True,
             separate=True)

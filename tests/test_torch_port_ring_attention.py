@@ -28,8 +28,6 @@ from panopticdiffusionmodels_torch.ops.ring_attention import ring_attention_qkv
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP, from_mesh
 from panopticdiffusionmodels_torch.utils.weights import to_tensors, uvit_t2i_state_dict
 
-torch.set_num_threads(1)
-
 HEADS, C = 4, 32
 SCALE = (C // HEADS) ** -0.5
 

@@ -21,8 +21,6 @@ from panopticdiffusionmodels_tpu.ops.ring_attention import _hop_xla, _stats
 from panopticdiffusionmodels_torch.ops.kernels import build, ring_hop
 from panopticdiffusionmodels_torch.ops.ring_attention import RingHop
 
-torch.set_num_threads(1)
-
 B, LQ, LK, HEADS, D = 2, 8, 16, 4, 64  # d = 64: a lane-aligned head group for Pallas
 C = HEADS * D
 SCALE = D ** -0.5

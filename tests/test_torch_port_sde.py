@@ -21,8 +21,6 @@ from panopticdiffusionmodels_torch.samplers.euler_maruyama import em_step, euler
 from panopticdiffusionmodels_torch.samplers.noise_schedule import NoiseScheduleVP
 from torch_port_pixel_common import close, jax_apply, nhwc, port_apply
 
-torch.set_num_threads(1)
-
 T_GRID = np.linspace(1e-4, 1.0, 57)
 
 

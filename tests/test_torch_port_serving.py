@@ -26,8 +26,6 @@ from panopticdiffusionmodels_torch.models import get_nnet
 from panopticdiffusionmodels_torch.models.vae import AutoencoderKL
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 
-torch.set_num_threads(1)
-
 VAE_GEOM = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, scale_factor=0.2301)
 
 

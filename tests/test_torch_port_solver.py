@@ -27,8 +27,6 @@ from panopticdiffusionmodels_torch.models import UViTT2I
 from panopticdiffusionmodels_torch.samplers.dpm_solver import DPMSolver, get_orders_for_fast
 from panopticdiffusionmodels_torch.samplers.noise_schedule import NoiseScheduleVP
 
-torch.set_num_threads(1)
-
 BETAS = stable_diffusion_beta_schedule()
 N = 1000
 

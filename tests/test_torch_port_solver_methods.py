@@ -29,8 +29,6 @@ from panopticdiffusionmodels_torch.samplers import dpm_solver as dpm
 from panopticdiffusionmodels_torch.samplers.noise_schedule import NoiseScheduleVP
 from torch_port_pixel_common import close, jax_apply, models, nhwc
 
-torch.set_num_threads(1)
-
 BETAS = stable_diffusion_beta_schedule()
 DEPTH = 2
 

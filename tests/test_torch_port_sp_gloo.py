@@ -20,8 +20,6 @@ from panopticdiffusionmodels_torch.ops.ring_attention import ring_attention_qkv
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from torch_port_sp_worker import C, HEADS, SP, ring_inputs, sp_trainer, train_step
 
-torch.set_num_threads(1)
-
 WORKER = Path(__file__).resolve().parent / "torch_port_sp_worker.py"
 
 

@@ -26,6 +26,7 @@ Against JAX, the loss, loss_mask and grad_norm of three steps and the
 parameters and EMA after them are held at rtol 1e-4 / atol 1e-5
 (`test_torch_port_train_sp.py`'s tolerance).
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -34,17 +35,16 @@ import torch_port_mesh_common as mc
 import torch_port_mesh_worker as worker
 from torch_port_train_common import jax_mesh_draws, jax_mesh_steps, jax_mesh_trainer, to_port
 
-torch.set_num_threads(1)
-
 STEPS = 3
 UNEVEN = dict(nnet=dict(num_clip_token=6), dataset=dict(clip_shape=(6, 16)))
 JAX_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _jax(tmp, mesh, seed):
-    """A JAX trainer at `mesh` with 6 context tokens: (its initial
-    parameters, its steps as tensors, the trainer, the numpy batches)."""
-    jt = jax_mesh_trainer(tmp / f"jax_{seed}", mesh, clip_tokens=6)
+def _jax(tmp, mesh, seed, params=None):
+    """A JAX trainer at `mesh` with 6 context tokens, from `params` if given:
+    (its initial parameters, its steps as tensors, the trainer, the numpy
+    batches)."""
+    jt = jax_mesh_trainer(tmp / f"jax_{seed}", mesh, clip_tokens=6, params=params)
     init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
     raw = [tuple(x.numpy() for x in b) for b, _ in mc.tiny_steps(STEPS, seed=seed,
                                                                  clip_tokens=6)]
@@ -55,6 +55,7 @@ def _jax(tmp, mesh, seed):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sp")
     dp_init, dp_steps, dp_jax, dp_raw = _jax(tmp, dict(sp=2, dp=2), 3)
+    params = jax.device_get(dp_jax.state.params)  # the sp = 2 trainer's too
     sample = mc.sample_inputs(clip_tokens=6)
     specs = dict(
         spdp=(4, dict(config=dict(UNEVEN, mesh=dict(sp=2, dp=2)), init=dp_init,
@@ -66,7 +67,7 @@ def runs(tmp_path_factory):
                         steps=mc.tiny_steps(STEPS, seed=6))))
     procs = {job: mc.start(tmp, job, world, spec) for job, (world, spec) in specs.items()}
     jax_runs = dict(spdp=jax_mesh_steps(dp_jax, dp_raw))
-    init, steps, jt, raw = _jax(tmp, dict(sp=2), 5)
+    init, steps, jt, raw = _jax(tmp, dict(sp=2), 5, params)
     jax_runs["uneven"] = jax_mesh_steps(jt, raw)
     uneven = worker.run_job(dict(init=init, steps=steps, config=dict(
         UNEVEN, mesh=dict(sp=2, sp_mode="in_process"))), str(tmp), "uneven", 0)

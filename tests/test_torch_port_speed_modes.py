@@ -30,8 +30,6 @@ from panopticdiffusionmodels_torch.samplers import speed_budget
 from panopticdiffusionmodels_torch.samplers.dpm_solver import DPMSolver
 from panopticdiffusionmodels_torch.samplers.noise_schedule import NoiseScheduleVP
 
-torch.set_num_threads(1)
-
 BETAS = stable_diffusion_beta_schedule()
 N = 1000
 SCALE = 0.7

@@ -30,8 +30,6 @@ from panopticdiffusionmodels_torch.models import get_nnet
 from panopticdiffusionmodels_torch.models.vae import AutoencoderKL
 from panopticdiffusionmodels_torch.serving import GenerationPipeline
 
-torch.set_num_threads(1)
-
 VAE_GEOM = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, scale_factor=0.18215)
 NNET = dict(img_size=8, embed_dim=32, depth=4, num_heads=4, num_classes=11)
 STEPS = 17  # the first step count at which accel 0.2 skips (15 real evals)

@@ -26,6 +26,7 @@ running the same job on the global batch of 16, f32, at rtol / atol 1e-5
 """
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -39,8 +40,6 @@ from torch_port_train_common import (batches, jax_mesh_draws, jax_mesh_steps, ja
                                      to_port)
 from torch_port_unet_common import unet_fields
 
-torch.set_num_threads(1)
-
 STEPS = 3
 JAX_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -49,7 +48,8 @@ JAX_METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
     jt = jax_mesh_trainer(tmp / "jax", dict(tp=2))
-    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(jt.state.params).items()}
+    params = jax.device_get(jt.state.params)  # the tp x fsdp trainer's too
+    init = {k: torch.from_numpy(np.array(v)) for k, v in to_port(params).items()}
     raw = batches(STEPS + 1)
     steps = [mc.as_tensors(*s) for s in jax_mesh_draws(jt, raw)]
     one_ckpt = tmp / "tp_one_ckpts" / f"{STEPS}.ckpt"
@@ -64,7 +64,7 @@ def runs(tmp_path_factory):
                  tpfsdp=mc.start(tmp, "tpfsdp", 4, fsdp_spec),
                  unet=mc.start(tmp, "unet", 2, unet_spec))
     jax_runs = dict(tp=jax_mesh_steps(jt, raw[:STEPS]), tpfsdp=jax_mesh_steps(
-        jax_mesh_trainer(tmp / "jax_fsdp", dict(tp=2, fsdp=2)), raw[:STEPS]))
+        jax_mesh_trainer(tmp / "jax_fsdp", dict(tp=2, fsdp=2), params=params), raw[:STEPS]))
     refs["tpfsdp"] = refs["tp"]  # the same job
     refs["unet"] = mc.one_process(tmp, "unet_one", unet_spec)
     got = {job: mc.finish(tmp, job, p) for job, p in procs.items()}

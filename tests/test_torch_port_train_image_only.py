@@ -20,14 +20,11 @@ import numpy as np
 import torch
 
 from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import unet_state_dict, uvit_t2i_state_dict
-from torch_port_train_common import assert_step_matches, batches, port_step
+from torch_port_train_common import assert_step_matches, batches, jax_trainer, port_step
 from torch_port_unet_common import to_jax, train_configs, train_jax_trainer
-
-torch.set_num_threads(2)
 
 STEPS = 3
 
@@ -62,7 +59,7 @@ def run(trainer, jt, state, to_port):
 def test_three_image_only_uvit_t2i_steps_match_jax_trainer(tmp_path):
     jconfig = jax_get_config("synthetic_tiny")
     jconfig.nnet.enable_panoptic = False
-    jt = JaxTrainer(jconfig, str(tmp_path / "jax"))
+    jt = jax_trainer(jconfig, tmp_path / "jax")
 
     def to_port(tree):
         return uvit_t2i_state_dict(jax.tree.map(np.asarray, tree), patch_size=2)

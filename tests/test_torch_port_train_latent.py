@@ -12,6 +12,8 @@ order only).  Then the same with `use_checkpoint` (remat 'save_attn') on,
 and a fine-tune load of a reference-format `.pth`, which freezes nothing for
 a class-conditional model.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import ml_collections
@@ -20,13 +22,10 @@ import pytest
 import torch
 
 from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import uvit_state_dict
-from torch_port_train_common import assert_step_matches, port_step
-
-torch.set_num_threads(1)
+from torch_port_train_common import assert_step_matches, jax_trainer, port_step
 
 STEPS, BATCH = 3, 16
 
@@ -55,15 +54,21 @@ def to_port(tree):
     return uvit_state_dict(jax.tree.map(np.asarray, tree), patch_size=2)
 
 
-def jax_draws(key, batch, n_timesteps=1000):
-    """The draws of `Trainer._loss`'s latent_discrete branch from `key`."""
+@functools.partial(jax.jit, static_argnames="n_timesteps")
+def _draws(key, moments, n_timesteps):
     k1, k2 = jax.random.split(key)
-    moments = jnp.asarray(batch[0])
     z = jax.random.normal(k1, moments[..., :4].shape, dtype=moments.dtype)
     key_n, key_eps, _ = jax.random.split(k2, 3)
     n = jax.random.randint(key_n, (moments.shape[0],), 1, n_timesteps + 1)
     eps = jax.random.normal(key_eps, moments[..., :4].shape, dtype=moments.dtype)
-    return {k: np.array(v) for k, v in dict(z=z, n=n, eps=eps).items()}
+    return dict(z=z, n=n, eps=eps)
+
+
+def jax_draws(key, batch, n_timesteps=1000):
+    """The draws of `Trainer._loss`'s latent_discrete branch from `key`, as
+    one jitted program."""
+    draws = _draws(key, jnp.asarray(batch[0]), n_timesteps=n_timesteps)
+    return {k: np.array(v) for k, v in draws.items()}
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "use_checkpoint"])
@@ -71,7 +76,7 @@ def ref(request, tmp_path_factory):
     """(use_checkpoint, initial params, per step dict(grads, metrics, params,
     ema, draws)) of the JAX trainer."""
     _, jconfig = configs(request.param)
-    trainer = JaxTrainer(jconfig, str(tmp_path_factory.mktemp("jax")))
+    trainer = jax_trainer(jconfig, tmp_path_factory.mktemp("jax"))
     state = trainer.state
     init = to_port(state.params)
     grad_fn = jax.jit(jax.grad(trainer._loss, has_aux=True))

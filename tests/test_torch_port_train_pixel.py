@@ -11,6 +11,8 @@ and eps): loss, grad_norm, every gradient, the updated parameters and the
 EMA must match at rtol 1e-4 / atol 1e-6 after each step, the tolerance of
 the other train-step tests (f32; the sides differ in summation order only).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import ml_collections
@@ -19,14 +21,11 @@ import pytest
 import torch
 
 from panopticdiffusionmodels_tpu.configs import get_config as jax_get_config
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.configs.base import autoencoder_block, d
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import uvit_state_dict
-from torch_port_train_common import assert_step_matches, port_step
-
-torch.set_num_threads(1)
+from torch_port_train_common import assert_step_matches, jax_trainer, port_step
 
 STEPS, BATCH = 3, 16
 KINDS = ["pixel_uncond", "pixel_cond", "latent_sde"]
@@ -71,8 +70,13 @@ def to_port(tree):
 
 def jax_draws(kind, key, batch):
     """The draws of `Trainer._loss`'s pixel_sde / latent_sde branch from `key`
-    (`diffusion/sde.py::SDE.sample`: t ~ U(0, 1), then eps)."""
-    x = jnp.asarray(batch[0])
+    (`diffusion/sde.py::SDE.sample`: t ~ U(0, 1), then eps), as one jitted
+    program."""
+    return {k: np.array(v) for k, v in _draws(key, jnp.asarray(batch[0]), kind=kind).items()}
+
+
+@functools.partial(jax.jit, static_argnames="kind")
+def _draws(key, x, kind):
     draws = {}
     if kind == "latent_sde":
         k1, key = jax.random.split(key)
@@ -81,7 +85,7 @@ def jax_draws(kind, key, batch):
     key_t, key_eps = jax.random.split(key)
     draws["t"] = jax.random.uniform(key_t, (x.shape[0],), dtype=x.dtype)
     draws["eps"] = jax.random.normal(key_eps, x.shape, dtype=x.dtype)
-    return {k: np.array(v) for k, v in draws.items()}
+    return draws
 
 
 @pytest.fixture(scope="module", params=KINDS)
@@ -90,7 +94,7 @@ def ref(request, tmp_path_factory):
     draws)) of the JAX trainer."""
     kind = request.param
     _, jconfig = configs(kind)
-    trainer = JaxTrainer(jconfig, str(tmp_path_factory.mktemp("jax")))
+    trainer = jax_trainer(jconfig, tmp_path_factory.mktemp("jax"))
     state = trainer.state
     init = to_port(state.params)
     grad_fn = jax.jit(jax.grad(trainer._loss, has_aux=True))

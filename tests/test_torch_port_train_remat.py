@@ -28,8 +28,6 @@ from torch_port_train_common import (
     to_port,
 )
 
-torch.set_num_threads(1)
-
 STEPS = 3
 
 

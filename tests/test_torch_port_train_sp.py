@@ -10,7 +10,6 @@ match at rtol 1e-4 / atol 1e-5, the tolerance of the JAX package's own
 `test_trainer_sp_ring_matches_dp1` (`tests/test_ring_attention.py:215-221`).
 """
 import pytest
-import torch
 
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from torch_port_train_common import (
@@ -20,8 +19,6 @@ from torch_port_train_common import (
     port_step,
     port_trainer,
 )
-
-torch.set_num_threads(1)
 
 STEPS = 3
 

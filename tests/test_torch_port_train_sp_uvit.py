@@ -23,14 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.parallel.mesh import InProcessSP
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from test_torch_port_train_latent import batches, configs, jax_draws, to_port
-from torch_port_train_common import assert_step_matches, port_step
-
-torch.set_num_threads(2)
+from torch_port_train_common import assert_step_matches, jax_placement, jax_trainer, port_step
 
 STEPS = 3
 
@@ -39,14 +36,16 @@ STEPS = 3
 def ref(tmp_path_factory):
     _, jconfig = configs()
     jconfig.mesh.sp = 2
-    trainer = JaxTrainer(jconfig, str(tmp_path_factory.mktemp("jax_sp")))
+    trainer = jax_trainer(jconfig, tmp_path_factory.mktemp("jax_sp"))
     assert trainer.mesh.shape["sp"] == 2
     state = trainer.state
     init = to_port(state.params)
+    placement = jax_placement(state)
     out = []
     for i, batch in enumerate(batches(STEPS)):
         key = jax.random.fold_in(trainer.rng, i + 1)
-        state, metrics = trainer._train_step(state, tuple(jnp.asarray(x) for x in batch), key)
+        state, metrics = trainer._train_step(jax.device_put(state, placement),
+                                             tuple(jnp.asarray(x) for x in batch), key)
         out.append(dict(metrics={k: float(v) for k, v in metrics.items()},
                         params=to_port(state.params), ema=to_port(state.ema_params),
                         draws=jax_draws(key, batch)))

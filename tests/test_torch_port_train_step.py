@@ -9,7 +9,6 @@ count 0, so its lr is 0.
 """
 import numpy as np
 import pytest
-import torch
 
 from panopticdiffusionmodels_tpu.train.state import make_lr_schedule as jax_lr_schedule
 from panopticdiffusionmodels_torch.train.state import make_lr_schedule
@@ -20,8 +19,6 @@ from torch_port_train_common import (
     port_step,
     port_trainer,
 )
-
-torch.set_num_threads(1)
 
 STEPS = 3
 

@@ -29,8 +29,6 @@ from torch_port_unet_common import ldm_state_dict, open_gate, to_jax
 from torch_port_unet_common import train_configs as configs
 from torch_port_unet_common import train_jax_trainer as jax_trainer
 
-torch.set_num_threads(4)
-
 STEPS = 3
 
 

@@ -16,8 +16,6 @@ from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.train import checkpoint as ckpt_lib
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 
-torch.set_num_threads(1)
-
 
 def tiny(**train):
     config = get_config("synthetic_tiny")

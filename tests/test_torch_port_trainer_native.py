@@ -31,8 +31,6 @@ from panopticdiffusionmodels_torch.train.trainer import Trainer
 import torch_port_mesh_common as mc
 from torch_port_coco_common import write_feature_dir
 
-torch.set_num_threads(1)
-
 
 @pytest.fixture(scope="module")
 def coco_features(tmp_path_factory):

@@ -25,8 +25,6 @@ from panopticdiffusionmodels_torch.models.unet import UNet2DCondition, conv_same
 from panopticdiffusionmodels_torch.utils.weights import to_tensors, unet_state_dict
 from torch_port_unet_common import TINY, tiny_pair
 
-torch.set_num_threads(4)
-
 RTOL, ATOL = 1e-4, 1e-5
 B = 2
 

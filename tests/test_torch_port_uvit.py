@@ -30,8 +30,6 @@ from panopticdiffusionmodels_torch.utils.weights import (
     uvit_state_dict,
 )
 
-torch.set_num_threads(1)
-
 GEOM = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=32, depth=4, num_heads=4)
 CASES = [(-1, False), (-1, True), (5, False), (5, True)]
 

@@ -20,8 +20,6 @@ from panopticdiffusionmodels_tpu.utils.torch_bridge import convert_uvit_t2i, exp
 from panopticdiffusionmodels_torch.models import UViTT2I
 from panopticdiffusionmodels_torch.utils.weights import to_tensors, uvit_t2i_state_dict
 
-torch.set_num_threads(1)
-
 GEOM = dict(img_size=8, patch_size=2, in_chans=4, embed_dim=32, depth=4, num_heads=4,
             clip_dim=16, num_clip_token=7, mask_bits=8, mask_size=16)
 MODES = {  # name -> (model flags, feed a mask token, use_ground_truth)

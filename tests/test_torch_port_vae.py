@@ -19,8 +19,6 @@ from panopticdiffusionmodels_tpu.utils.torch_bridge import convert_autoencoder_k
 from panopticdiffusionmodels_torch.models.vae import AutoencoderKL
 from panopticdiffusionmodels_torch.utils.weights import autoencoder_kl_state_dict, to_tensors
 
-torch.set_num_threads(1)
-
 GEOM = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=4, embed_dim=4, out_ch=3,
             scale_factor=0.2301)
 

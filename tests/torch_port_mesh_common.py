@@ -82,7 +82,6 @@ def finish(tmp: Path, job: str, procs: list) -> list:
 def one_process(tmp: Path, job: str, spec: dict) -> dict:
     """The job in this process, its mesh at every axis 1: the reference."""
     spec = dict(spec, config=dict(spec["config"], mesh=dict(dp=-1, fsdp=1, sp=1, tp=1, pp=1)))
-    torch.set_num_threads(1)
     return worker.run_job(spec, str(tmp), job, 0)
 
 

@@ -11,6 +11,8 @@ timesteps, eps and the mask noise) as `noise`.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,10 @@ from panopticdiffusionmodels_tpu.train.trainer import Trainer as JaxTrainer
 from panopticdiffusionmodels_torch.configs import get_config
 from panopticdiffusionmodels_torch.train.trainer import Trainer
 from panopticdiffusionmodels_torch.utils.weights import uvit_t2i_state_dict
+
+# The port's tests run one intra-op thread: the test processes share the
+# host's cores.  Every process that collects the port's tests imports this.
+torch.set_num_threads(1)
 
 BATCH = 16
 MASK_PATCH = 4  # synthetic_tiny: patch 2 x mask_size 16 / img_size 8
@@ -41,18 +47,23 @@ def to_port(tree) -> dict:
     return uvit_t2i_state_dict(tree, patch_size=2, mask_patch_size=MASK_PATCH)
 
 
-def jax_draws(key, batch, n_timesteps: int = 1000) -> dict:
-    """The draws `Trainer._loss` makes from `key` (t2i_discrete branch)."""
+@functools.partial(jax.jit, static_argnames="n_timesteps")
+def _draws(key, moments, ints, n_timesteps):
     k1, k2 = jax.random.split(key)
-    moments = jnp.asarray(batch[0])
     z = jax.random.normal(k1, moments[..., :4].shape, dtype=moments.dtype)
     key_n, key_eps, key_eps_m = jax.random.split(k2, 3)
-    b = moments.shape[0]
-    n = jax.random.randint(key_n, (b,), 1, n_timesteps + 1)
+    n = jax.random.randint(key_n, (moments.shape[0],), 1, n_timesteps + 1)
     eps = jax.random.normal(key_eps, moments[..., :4].shape, dtype=moments.dtype)
-    mask = ints_to_analog(jnp.asarray(batch[2]), n=8, dtype=moments.dtype)
+    mask = ints_to_analog(ints, n=8, dtype=moments.dtype)
     eps_m = MASK_NOISE_SCALE * jax.random.normal(key_eps_m, mask.shape, dtype=mask.dtype)
-    return {k: np.array(v) for k, v in dict(z=z, n=n, eps=eps, eps_m=eps_m).items()}
+    return dict(z=z, n=n, eps=eps, eps_m=eps_m)
+
+
+def jax_draws(key, batch, n_timesteps: int = 1000) -> dict:
+    """The draws `Trainer._loss` makes from `key` (t2i_discrete branch), as
+    one jitted program: eagerly each draw compiles on its own."""
+    draws = _draws(key, jnp.asarray(batch[0]), jnp.asarray(batch[2]), n_timesteps=n_timesteps)
+    return {k: np.array(v) for k, v in draws.items()}
 
 
 def configure(config, use_checkpoint: bool, pretrained: str, mesh=None, nnet=None):
@@ -68,15 +79,17 @@ def jax_reference(workdir, steps, use_checkpoint=False, pretrained="", mesh=None
     """(initial params, [per-step dict(grads, metrics, params, ema, draws)]);
     `mesh` and `nnet` override the config's mesh and network fields, and
     `with_grads=False` skips the separate gradient pass (no 'grads' entry)."""
-    trainer = JaxTrainer(configure(jax_get_config("synthetic_tiny"), use_checkpoint,
-                                   pretrained, mesh, nnet), str(workdir))
+    trainer = jax_trainer(configure(jax_get_config("synthetic_tiny"), use_checkpoint,
+                                    pretrained, mesh, nnet), workdir)
     state = trainer.state
     init = to_port(state.params)
     grad_fn = jax.jit(jax.grad(trainer._loss, has_aux=True))
+    placement = jax_placement(state)
     out = []
     for i, batch in enumerate(steps):
         key = jax.random.fold_in(trainer.rng, i + 1)
         jb = tuple(jnp.asarray(x) for x in batch)
+        state = jax.device_put(state, placement)
         step = {}
         if with_grads:
             step["grads"] = to_port(grad_fn(state.params, jb, key)[0])
@@ -87,22 +100,31 @@ def jax_reference(workdir, steps, use_checkpoint=False, pretrained="", mesh=None
     return init, out
 
 
-def jax_mesh_trainer(workdir, mesh, nnet=None, train=None, clip_tokens: int = 7):
+def jax_trainer(config, workdir, params=None):
+    """The JAX `Trainer` of `config`, its parameter init one jitted program,
+    or starting from `params` (a host copy of another trainer's).  Eagerly,
+    every draw of the init compiles on its own (the values are the same),
+    and the token sharding of a stream that does not divide sp lands on a
+    pjit output, which JAX refuses; under jit it is an intermediate that
+    GSPMD pads, as in the jitted train step."""
+    init_params = JaxTrainer._init_params
+    try:
+        JaxTrainer._init_params = (
+            (lambda self: jax.jit(lambda: init_params(self))()) if params is None
+            else (lambda self: jax.tree.map(jnp.asarray, params)))
+        return JaxTrainer(config, str(workdir))
+    finally:
+        JaxTrainer._init_params = init_params
+
+
+def jax_mesh_trainer(workdir, mesh, nnet=None, train=None, clip_tokens: int = 7, params=None):
     """The JAX `Trainer` of synthetic_tiny (f32) at `mesh`, `nnet` / `train`
-    fields overridden and `clip_tokens` context tokens.  Its parameter init
-    runs under jit: eagerly, the token sharding of a stream that does not
-    divide sp lands on a pjit output, which JAX refuses; under jit it is an
-    intermediate that GSPMD pads, as in the jitted train step."""
+    fields overridden, `clip_tokens` context tokens, from `params` if given."""
     config = configure(jax_get_config("synthetic_tiny"), False, "", mesh,
                        dict(nnet or {}, num_clip_token=clip_tokens))
     config.dataset.clip_shape = (clip_tokens, 16)
     config.train.update(train or {})
-    init_params = JaxTrainer._init_params
-    try:
-        JaxTrainer._init_params = lambda self: jax.jit(lambda: init_params(self))()
-        return JaxTrainer(config, str(workdir))
-    finally:
-        JaxTrainer._init_params = init_params
+    return jax_trainer(config, workdir, params)
 
 
 def jax_mesh_draws(trainer, raw, accum: int = 1) -> list:
@@ -123,12 +145,22 @@ def jax_mesh_draws(trainer, raw, accum: int = 1) -> list:
     return out
 
 
+def jax_placement(state):
+    """The shardings of the JAX trainer's initial state.  Its step returns
+    some leaves placed otherwise (a tp-split bias comes back replicated),
+    and a step given those would compile a second time: every step starts
+    from this placement (the values are unchanged)."""
+    return jax.tree.map(lambda x: x.sharding, state)
+
+
 def jax_mesh_steps(trainer, raw) -> tuple:
     """The JAX trainer's steps on the numpy batches `raw`: ([metrics],
     dict(params, ema) after them by the port's names, as tensors)."""
     state, metrics = trainer.state, []
+    placement = jax_placement(state)
     for i, batch in enumerate(raw):
-        state, m = trainer._train_step(state, tuple(jnp.asarray(x) for x in batch),
+        state, m = trainer._train_step(jax.device_put(state, placement),
+                                       tuple(jnp.asarray(x) for x in batch),
                                        jax.random.fold_in(trainer.rng, i + 1))
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, {k: {n: torch.from_numpy(np.array(v)) for n, v in to_port(t).items()}
